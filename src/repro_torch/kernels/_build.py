@@ -1,0 +1,143 @@
+"""Build and load the port's CUDA kernels.
+
+Each `csrc/<name>.cu` is compiled by `nvcc` for `sm_90a` into its own
+shared library with a plain C interface, all sources at once in parallel,
+and loaded with `ctypes`.  The libraries go to `build/repro_torch_kernels/
+<hash>/` at the root of the checkout, keyed by a hash of the sources and
+flags, so a library is built once per source version.  A failed build
+raises: there is no fallback.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Optional
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_vp = ctypes.c_void_p
+_i = ctypes.c_int
+_ll = ctypes.c_longlong
+
+# argtypes/restype of every C entry point, per library
+SIGNATURES = {
+    "dual_x": {
+        "dual_x_max_width": ([], _i),
+        "dual_x_scratch": ([_ll, _i], _ll),
+        "dual_x_launch": ([_i] + [_vp] * 12 + [_ll, _i, _i, _i, _i, _vp], _i),
+    },
+    "ax_reduce_x": {
+        "ax_reduce_x_max_families": ([], _i),
+        "ax_reduce_x_scratch": ([_i, _i, _i], _ll),
+        "ax_reduce_x_launch": ([_i] + [_vp] * 7 + [_i, _i, _i, _i, _vp], _i),
+    },
+}
+
+
+class _State:
+    libs: Optional[Dict[str, ctypes.CDLL]] = None
+    build_seconds: float = 0.0
+    build_log: str = ""
+
+
+def _nvcc() -> str:
+    cand = [shutil.which("nvcc")]
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if home:
+        cand.append(os.path.join(home, "bin", "nvcc"))
+    cand.append("/usr/local/cuda/bin/nvcc")
+    for c in cand:
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError("nvcc not found: the port's CUDA kernels are built "
+                       "with the CUDA toolkit's nvcc (set CUDA_HOME)")
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.glob("*.cu*")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Dict[str, ctypes.CDLL]:
+    """Compile (if needed) and load every kernel library; returns
+    {source name: CDLL}.  Raises RuntimeError on a failed build."""
+    if _State.libs is not None:
+        return _State.libs
+    out_dir = BUILD_ROOT / _source_hash()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    procs = {}
+    for name in SIGNATURES:
+        lib = out_dir / f"lib{name}.so"
+        if lib.exists():
+            continue
+        tmp = out_dir / f"lib{name}.{os.getpid()}.tmp.so"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, lib)
+    logs, failed = [], []
+    for name, (proc, tmp, lib) in procs.items():
+        out, _ = proc.communicate()
+        logs.append(f"== nvcc {name}.cu (rc={proc.returncode})\n{out}")
+        if proc.returncode != 0:
+            failed.append(name)
+        else:
+            os.replace(tmp, lib)
+    _State.build_log = "\n".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed for {failed}:\n{_State.build_log}")
+    libs = {}
+    for name, sigs in SIGNATURES.items():
+        lib = ctypes.CDLL(str(out_dir / f"lib{name}.so"))
+        for fn, (argtypes, restype) in sigs.items():
+            f = getattr(lib, fn)
+            f.argtypes = argtypes
+            f.restype = restype
+        libs[name] = lib
+    _State.build_seconds = time.perf_counter() - t0
+    _State.libs = libs
+    return libs
+
+
+def build_seconds() -> float:
+    return _State.build_seconds
+
+
+def build_log() -> str:
+    """nvcc's output of this process's builds (ptxas register/spill lines)."""
+    return _State.build_log
+
+
+def check_tensor(fn: str, name: str, t, shape, dtype, device) -> None:
+    """Raise unless `t` has the shape, dtype and device a kernel takes and
+    is contiguous (the kernels index raw pointers)."""
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{fn}: {name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if t.dtype != dtype:
+        raise TypeError(f"{fn}: {name} is {t.dtype}, expected {dtype}")
+    if t.device != device:
+        raise ValueError(f"{fn}: {name} is on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{fn}: {name} must be contiguous")
+
+
+def check(rc: int, what: str) -> None:
+    """Raise on a non-zero return code of a C entry point."""
+    if rc != 0:
+        raise RuntimeError(f"{what} failed: "
+                           + ("shape not supported by the kernel" if rc == -1
+                              else f"CUDA error {rc}"))

@@ -1,0 +1,75 @@
+"""Plain PyTorch versions of the hand-written kernels (port of
+`repro.kernels.ref`).
+
+Each function repeats its kernel's arithmetic with ordinary tensor ops.
+The wrappers in `dual_grad.py` and `ax_reduce.py` run them for tensors on
+the CPU; `chip_smoke.py` and the tests hold each kernel against them on
+the card.  Only the order of the floating-point sums differs.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def boxcut_bisect_ref(v, ub, s, mask, iters: int = 40):
+    """Row-wise projection onto {0 <= x <= ub, Σx <= s} by τ-bisection.
+    v, ub, mask: (n, w); s: (n,)."""
+    zero = torch.zeros((), dtype=v.dtype, device=v.device)
+    v = torch.where(mask, v, torch.full_like(v, -1e30))
+
+    def clip(t):
+        return torch.minimum(torch.clamp_min(t, 0.0), ub)
+
+    f0 = torch.where(mask, clip(v), zero).sum(dim=-1)
+    need = f0 > s
+    hi = v.amax(dim=-1)
+    lo = torch.minimum(torch.zeros_like(hi), hi)
+    for _ in range(iters):
+        mid = 0.5 * (lo + hi)
+        f = torch.where(mask, clip(v - mid[:, None]), zero).sum(dim=-1)
+        big = f > s
+        lo, hi = torch.where(big, mid, lo), torch.where(big, hi, mid)
+    tau = torch.where(need, 0.5 * (lo + hi), torch.zeros_like(lo))
+    return torch.where(mask, clip(v - tau[:, None]), zero)
+
+
+def dual_x_ref(a_vals, c_vals, dest_idx, mask, ub, s, lam, gamma,
+               iters: int = 40):
+    """x*(λ) and its scalars for one slab (the `dual_x` kernel's function):
+
+      u    = −(Σ_k a_k ⊙ λ_k[dest] + c) / γ
+      x    = Π_boxcut(u)
+      c_x  = <c, x>,  x_sq = ‖x‖²          (float32 sums)
+
+    a_vals: (n, w, m); lam: (m, J) float32; gamma: 0-d tensor in the slab's
+    dtype.  Returns (x in the slab's dtype, c_x, x_sq).
+    """
+    d = dest_idx.long()
+    atl = torch.zeros(c_vals.shape, dtype=a_vals.dtype, device=a_vals.device)
+    for k in range(a_vals.shape[2]):
+        atl = atl + a_vals[:, :, k] * lam[k][d]
+    u = -(atl + c_vals) / gamma
+    x = boxcut_bisect_ref(u, ub, s, mask, iters)
+    c_x = (c_vals * x).float().sum()
+    x_sq = (x * x).float().sum()
+    return x.to(c_vals.dtype), c_x, x_sq
+
+
+def ax_reduce_x_ref(x, a_dm, edge_idx, mask):
+    """out[r, k] = Σ_q mask[r, q] · a_dm[r, q, k] · x[edge_idx[r, q]].
+
+    The product is formed in the input dtype and summed in float32.
+    Returns (r, m) float32.
+    """
+    r, w = edge_idx.shape
+    xe = x[edge_idx.reshape(-1).long()].reshape(r, w)
+    prod = (a_dm * xe[..., None]).float()
+    return torch.where(mask[..., None], prod, torch.zeros_like(prod)).sum(dim=1)
+
+
+def ax_plan_x_ref(plan, x):
+    """(m, J) Ax from a value-carrying plan and the (E,) x vector, assembled
+    through the plan's `inv_perm` gather."""
+    rows = torch.cat([ax_reduce_x_ref(x, b.a_dm, b.edge_idx, b.mask)
+                      for b in plan.buckets], dim=0)
+    return rows[plan.inv_perm.long()].T

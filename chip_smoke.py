@@ -7,23 +7,40 @@ nothing of JAX or of the JAX package.  Phases, each failing loudly:
   1. device   the card's name and power limit (nvidia-smi), CUDA version
   2. build    nvcc builds every kernel from src/repro_torch/kernels/csrc
   3. main     the port's CLI entry point, in process, at 2M sources x 10k
-              destinations (nu = 25): generate, row-normalize, agd to
-              tolerance with adaptive continuation, certificate.  Every
-              kernel's launch counter is set to 0 just before and read just
-              after; each must have launched.  Then the counters of one
-              dual evaluation (what an agd iteration runs once).
-  4. kernels  each kernel against its plain PyTorch version on the card,
+              destinations (nu = 25): generate (once for phases 3 and 6),
+              row-normalize, agd to tolerance with adaptive continuation
+              on the x-carry aligned path, certificate.  Every kernel's
+              launch counter is set to 0 just before and read just after;
+              each kernel of the path must have launched.  Then the
+              counters of one dual evaluation (what an agd iteration runs
+              once).
+  4. kernels  K1 and K2 against their plain PyTorch versions on the card,
               on the main path's own tensors (every slab / every bucket in
               float32, bfloat16 copies of the widest and narrowest), with
               times (CUDA events, median of 20 after warm-up), the
               memory/operation bound, and a library yardstick where one
               PyTorch call computes the same function; then row norms
               and 50 main-path iterations, each twice, bit for bit
-  5. parity   the reference's recorded perf_lp/tol_agd run (2000 x 1000,
-              nu = 4, seed 42): converged, final dual within 1e-4 relative
-              of -2340.3547, stopped within one check of where the
-              reference's own ax modes stop, and a second run
-              bit-identical to the first
+  5. gvals    the main path's instance again through the CLI entry point
+              with --ax-mode aligned_gvals --certify (K3 + K4), then one
+              evaluation there equal bit for bit to the aligned path's at
+              its final lambda; K3, K4 and K5 against their plain versions
+              at the main path's shapes, timed as in 4 (K5 through its
+              entry point `ops.proj_boxcut`, on every slab's
+              pre-projection u, which it must map to K1's x); then the
+              same instance with --ax-mode scatter
+  6. wide     3,000 x 5,000 at nu = 1000 (a 2,048-wide slab) through the
+              CLI entry point: 50 iterations against the reference CLI's
+              dual, then to tolerance with a valid certificate; K1, K3, K5
+              against their plain versions at widths 2,048 and 8,192
+  7. parity   the reference's recorded perf_lp/tol_agd run (2000 x 1000,
+              nu = 4, seed 42) in each ax mode: converged, final dual
+              within 1e-4 relative of -2340.3547, stopped within one check
+              of where the reference's own ax modes stop; aligned twice and
+              sorted twice bit-identical, aligned_gvals bit-identical to
+              aligned; then GlobalCountObjective (count row normalized)
+              with the count at 90 % of the unconstrained sum of x, which
+              must converge and bind
 
 The last three lines of standard output are the card's name and power
 limit, the kernels' JSON record, and {"ok": true, "device": {...}}.  Exits
@@ -41,6 +58,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
+DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 F32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 MAIN_ARGS = ["--sources", "2000000", "--destinations", "10000",
@@ -48,11 +66,20 @@ MAIN_ARGS = ["--sources", "2000000", "--destinations", "10000",
              "--adaptive-continuation", "--tol-rel-dual", "1e-6",
              "--check-every", "25", "--iterations", "3000", "--certify",
              "--json", "--device", "cuda"]
+WIDE_ARGS = ["--sources", "3000", "--destinations", "5000",
+             "--nnz-per-row", "1000", "--seed", "42", "--json",
+             "--device", "cuda"]
+# the final dual of `python -m repro.launch.solve --sources 3000
+# --destinations 5000 --nnz-per-row 1000 --seed 42 --iterations 50 --json`,
+# the reference CLI on a CPU
+WIDE_DUAL_50 = -13033.7939453125
 PARITY_DUAL = -2340.354736328125       # perf_lp/tol_agd, bench_results.json
 # where the reference's own ax modes stop on that instance (scatter 1600,
 # sorted 1625, aligned and aligned_gvals 2150; JAX on a CPU): at
 # tol_rel_dual 1e-6 the stopping check moves with the summation order alone
 PARITY_ITERATIONS = (1600, 2150)
+PARITY_CHECK = 25
+WRAPPERS = {}    # kernel wrapper name -> wrapper, with its launch counter
 
 
 def log(msg):
@@ -134,16 +161,8 @@ def check_dual_x(obj, lam, gamma):
     ms = cuda_ms(kernel)
     plain_ms = cuda_ms(plain, reps=5, warmup=1)
     m, J = lam.shape
-    # bytes the function must move: a, c, dest and ub at the real edges
-    # only (the kernel reads them only where the mask is set), the mask and
-    # the written x over every padded entry, s per row, lambda once
-    real = sum(int(s.mask.sum()) for s in slabs)
-    padded = sum(s.n * s.width for s in slabs)
-    rows = sum(s.n for s in slabs)
-    ea, ec, eu = (slabs[0].a_vals.element_size(),
-                  slabs[0].c_vals.element_size(), slabs[0].ub.element_size())
-    nbytes = (real * (ea * m + ec + 4 + eu) + padded * (1 + ec)
-              + rows * slabs[0].s.element_size() + m * J * 4)
+    nbytes, real, padded, rows, ea, ec, eu = _slab_bytes(slabs, m, J)
+    nbytes += padded * ec                     # x written
     ops = real * (2 * m + 12 + 4 * iters)
     bound_ms, bound_by = bound(nbytes, ops)
     log(f"dual_x_slab  one sweep ({len(slabs)} slabs, {real} real edges of "
@@ -233,6 +252,354 @@ def check_ax_reduce(obj):
             "library_ms": library_ms}
 
 
+def _slab_bytes(slabs, m, J):
+    """The bytes every slab kernel reads of the slabs: a, c, dest and ub at
+    the real edges only (the kernels read them only where the mask is set),
+    the mask over every padded entry, s per row, lambda once; and the
+    counts behind them."""
+    real = sum(int(s.mask.sum()) for s in slabs)
+    padded = sum(s.n * s.width for s in slabs)
+    rows = sum(s.n for s in slabs)
+    ea, ec, eu = (slabs[0].a_vals.element_size(),
+                  slabs[0].c_vals.element_size(), slabs[0].ub.element_size())
+    nbytes = (real * (ea * m + ec + 4 + eu) + padded
+              + rows * slabs[0].s.element_size() + m * J * 4)
+    return nbytes, real, padded, rows, ea, ec, eu
+
+
+def check_dual_grad(obj, lam, gamma):
+    """K3 on every slab of the main path against its plain version, and
+    its x, c_x, x_sq against K1's bit for bit."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.dual_grad import dual_grad_slab, dual_x_slab
+    slabs = obj.lp.slabs
+    g = torch.full((), gamma, dtype=torch.float32, device=lam.device)
+    iters = obj.proj_iters
+    err_x, err_s, same_as_k1 = 0.0, 0.0, True
+    for s in slabs:
+        x, gv, cx, xsq = dual_grad_slab(*s[:6], lam, g, iters=iters)
+        x1, cx1, xsq1 = dual_x_slab(*s[:6], lam, g, iters=iters)
+        same_as_k1 &= (torch.equal(x, x1) and torch.equal(cx, cx1)
+                       and torch.equal(xsq, xsq1))
+        xr, gr, cxr, xsqr = ref.dual_grad_ref(*s[:6], lam, g, iters)
+        err_x = max(err_x, float((x - xr).abs().max()),
+                    float((gv - gr).abs().max()))
+        for u, v in ((cx, cxr), (xsq, xsqr)):
+            err_s = max(err_s, abs(float(u) - float(v)) / max(abs(float(v)), 1e-30))
+        require(torch.equal(gv, torch.where(s.mask[..., None],
+                                            s.a_vals * x[..., None], 0.0)),
+                f"dual_grad w={s.width}: gvals is not a*x, 0 on padding")
+    require(same_as_k1, "dual_grad: x, c_x, x_sq differ from dual_x's bits")
+    require(err_x <= 1e-4, f"dual_grad: max |dx|, |dgvals| {err_x} > 1e-4")
+    require(err_s <= 1e-5, f"dual_grad: scalar rel err {err_s} > 1e-5")
+    log(f"dual_grad_slab  f32 all {len(slabs)} slabs: max|dx|,|dg| "
+        f"{err_x:.3e} (atol 1e-4), scalars rel {err_s:.3e} (rtol 1e-5); "
+        f"x, c_x, x_sq equal dual_x_slab's bit for bit")
+    widths = sorted(range(len(slabs)), key=lambda i: slabs[i].width)
+    for si in (widths[0], widths[-1]):
+        s = slabs[si]
+        sb = [t.to(torch.bfloat16) if t.is_floating_point() else t
+              for t in s[:6]]
+        x, gv, cx, xsq = dual_grad_slab(*sb, lam, g, iters=iters)
+        xr, gr, cxr, xsqr = ref.dual_grad_ref(*sb, lam, g.to(torch.bfloat16),
+                                              iters)
+        e = max(float((x.float() - xr.float()).abs().max()),
+                float((gv.float() - gr.float()).abs().max()))
+        es = max(abs(float(cx) - float(cxr)) / max(abs(float(cxr)), 1e-30),
+                 abs(float(xsq) - float(xsqr)) / max(abs(float(xsqr)), 1e-30))
+        require(e <= 5e-2 and es <= 5e-2,
+                f"dual_grad bf16 w={s.width}: {e}, {es}")
+        log(f"dual_grad_slab  bf16 w={s.width}: max|dx|,|dg| {e:.3e}, "
+            f"scalars rel {es:.3e} (tol 5e-2)")
+
+    def kernel():
+        for s in slabs:
+            dual_grad_slab(*s[:6], lam, g, iters=iters)
+
+    def plain():
+        for s in slabs:
+            ref.dual_grad_ref(*s[:6], lam, g, iters)
+
+    ms = cuda_ms(kernel)
+    plain_ms = cuda_ms(plain, reps=5, warmup=1)
+    m, J = lam.shape
+    nbytes, real, padded, rows, ea, ec, eu = _slab_bytes(slabs, m, J)
+    nbytes += padded * (ec + ea * m)          # x and gvals written
+    ops = real * (3 * m + 12 + 4 * iters)
+    bound_ms, bound_by = bound(nbytes, ops)
+    log(f"dual_grad_slab  one sweep ({len(slabs)} slabs, {real} real edges of "
+        f"{padded}): {ms:.4f} ms; plain {plain_ms:.4f} ms; bound "
+        f"{bound_ms:.4f} ms = max({nbytes} bytes / 3.35 TB/s, {ops} ops / "
+        f"67 TFLOP/s); bytes = real*({ea}m a + {ec} c + 4 dest + {eu} ub) + "
+        f"padded*(1 mask + {ec} x + {ea}m gvals) + {rows} rows*s + 4mJ")
+    return {"name": "dual_grad_slab", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/dual_x.cu",
+            "replaces": "src/repro/kernels/dual_grad.py:32",
+            "max_abs_err": err_x, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
+def check_ax_reduce_gvals(obj, obj_x):
+    """K4 on every bucket of the index-only plan against its plain version,
+    fed the main path's own gvals buffer; at float32 its Ax equals K2's on
+    the x buffer of the same sweep bit for bit."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.ax_reduce import ax_reduce_bucket
+    plan, gv = obj._plan, obj._gbuf
+    m, J = obj.lp.m, obj.lp.num_destinations
+    out = torch.full((m, J), float("nan"), device=gv.device)
+    err = 0.0
+    for b in plan.buckets:
+        ax_reduce_bucket(gv, b.edge_idx, b.mask, b.dest_ids, out)
+        want = ref.ax_reduce_ref(gv, b.edge_idx, b.mask).T
+        got = out[:, b.dest_ids.long()]
+        rel = float(((got - want).abs() / want.abs().clamp_min(1.0)).max())
+        err = max(err, float((got - want).abs().max()))
+        require(rel <= 1e-5, f"ax_reduce w={b.width}: rel err {rel} > 1e-5")
+    require(not torch.isnan(out).any(),
+            "ax_reduce: a destination was not written")
+    require(torch.allclose(out, ref.ax_plan_ref(plan, gv), rtol=1e-5,
+                           atol=1e-5), "ax_reduce assembly")
+    require(torch.equal(out, ops.ax_aligned_x(obj_x._plan, obj._xbuf)),
+            "ax_reduce (gvals) and ax_reduce_x (x-carry) Ax differ in bits")
+    log(f"ax_reduce_bucket  f32 all {len(plan.buckets)} buckets (widths "
+        f"{plan.buckets[0].width}..{plan.buckets[-1].width}): max|d ax| "
+        f"{err:.3e} (rtol 1e-5 of max(1, |ax|)); equal to ax_reduce_x's Ax "
+        f"bit for bit")
+    gb = gv.to(torch.bfloat16)
+    for b in (plan.buckets[0], plan.buckets[-1]):
+        ob = torch.zeros((m, J), device=gv.device)
+        ax_reduce_bucket(gb, b.edge_idx, b.mask, b.dest_ids, ob)
+        want = ref.ax_reduce_ref(gb, b.edge_idx, b.mask).T
+        got = ob[:, b.dest_ids.long()]
+        rel = float(((got - want).abs() / want.abs().clamp_min(1.0)).max())
+        require(rel <= 5e-2, f"ax_reduce bf16 w={b.width}: {rel}")
+        log(f"ax_reduce_bucket  bf16 w={b.width}: rel err {rel:.3e} "
+            f"(tol 5e-2)")
+    del gb
+
+    ms = cuda_ms(lambda: ops.ax_aligned(plan, gv))
+    plain_ms = cuda_ms(lambda: ref.ax_plan_ref(plan, gv), reps=5, warmup=1)
+    # the library yardstick: one cuSPARSE CSR product of the 0/1
+    # destination-incidence matrix (J x E) with the gvals (E x m)
+    rows, cols = [], []
+    for b in plan.buckets:
+        rr, qq = torch.nonzero(b.mask, as_tuple=True)
+        rows.append(b.dest_ids.long()[rr])
+        cols.append(b.edge_idx.long()[rr, qq])
+    idx = torch.stack([torch.cat(rows), torch.cat(cols)])
+    coo = torch.sparse_coo_tensor(idx, torch.ones(idx.shape[1],
+                                                  device=gv.device),
+                                  (J, gv.shape[0]))
+    csr = coo.coalesce().to_sparse_csr()
+    del coo, rows, cols, idx
+    lib = (csr @ gv).T
+    require(torch.allclose(lib, out, rtol=1e-4, atol=1e-4), "CSR yardstick")
+    library_ms = cuda_ms(lambda: csr @ gv)
+    del csr
+    # bytes: the m gvals and edge_idx at the real entries (the kernel skips
+    # masked ones), the mask over every plan entry, dest_ids per row, the
+    # (m, J) result written once
+    real = sum(int(b.mask.sum()) for b in plan.buckets)
+    entries = sum(b.mask.numel() for b in plan.buckets)
+    prow = sum(b.dest_ids.numel() for b in plan.buckets)
+    eg = gv.element_size()
+    nbytes = real * (eg * m + 4) + entries + prow * 4 + m * J * 4
+    bound_ms, bound_by = bound(nbytes, m * real)
+    log(f"ax_reduce_bucket  one Ax ({len(plan.buckets)} buckets, {real} real "
+        f"entries of {entries}): {ms:.4f} ms; plain {plain_ms:.4f} ms; CSR "
+        f"library {library_ms:.4f} ms; bound {bound_ms:.4f} ms = {nbytes} "
+        f"bytes / 3.35 TB/s; bytes = real*({eg}m gvals + 4 idx) + entries*1 "
+        f"mask + {prow} rows*4 dest + 4mJ")
+    return {"name": "ax_reduce_bucket", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ax_reduce.cu",
+            "replaces": "src/repro/kernels/ax_reduce.py:52",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
+def slab_u(a_vals, c_vals, dest_idx, lam, gamma):
+    """The pre-projection point u = -(sum_k a_k lam_k[dest] + c) / gamma of a
+    slab, as the plain version forms it (float32)."""
+    import torch
+    d = dest_idx.long()
+    atl = torch.zeros_like(c_vals)
+    for k in range(a_vals.shape[2]):
+        atl = atl + a_vals[:, :, k] * lam[k][d]
+    return -(atl + c_vals) / gamma
+
+
+def proj_path(obj, lam, gamma):
+    """The path that launches K5: its entry point `ops.proj_boxcut` on every
+    slab's pre-projection u at the main path's final lambda.  Returns the
+    projected slabs, the u's and the launches."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.proj import proj_boxcut
+    g = torch.full((), gamma, dtype=torch.float32, device=lam.device)
+    us = [slab_u(s.a_vals, s.c_vals, s.dest_idx, lam, g)
+          for s in obj.lp.slabs]
+    proj_boxcut.launches = 0
+    xs = [ops.proj_boxcut(u, s.ub, s.s, s.mask, iters=obj.proj_iters)
+          for u, s in zip(us, obj.lp.slabs)]
+    torch.cuda.synchronize()
+    return xs, us, proj_boxcut.launches
+
+
+def check_proj(obj, lam, gamma, xs, us):
+    """K5 on every slab's u against its plain version, and against K1's x
+    of the same slab."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.dual_grad import dual_x_slab
+    from repro_torch.kernels.proj import proj_boxcut
+    slabs, iters = obj.lp.slabs, obj.proj_iters
+    g = torch.full((), gamma, dtype=torch.float32, device=lam.device)
+    err, err_k1, bitwise = 0.0, 0.0, True
+    for s, u, x in zip(slabs, us, xs):
+        xr = ref.proj_boxcut_ref(u, s.ub, s.s, s.mask, iters)
+        err = max(err, float((x - xr).abs().max()))
+        x1, _, _ = dual_x_slab(*s[:6], lam, g, iters=iters)
+        err_k1 = max(err_k1, float((x - x1).abs().max()))
+        bitwise &= torch.equal(x, x1)
+    require(err <= 1e-4, f"proj: max |dx| {err} > 1e-4")
+    require(err_k1 <= 1e-4, f"proj of u vs dual_x: max |dx| {err_k1} > 1e-4")
+    log(f"proj_boxcut  f32 all {len(slabs)} slabs: max|dx| {err:.3e} (atol "
+        f"1e-4); against dual_x_slab's x: max|dx| {err_k1:.3e} (atol 1e-4), "
+        f"bit-identical: {bitwise}")
+    widths = sorted(range(len(slabs)), key=lambda i: slabs[i].width)
+    for si in (widths[0], widths[-1]):
+        s = slabs[si]
+        ub, sb, ubb = (t.to(torch.bfloat16) for t in (us[si], s.s, s.ub))
+        x = proj_boxcut(ub, ubb, sb, s.mask, iters)
+        xr = ref.proj_boxcut_ref(ub, ubb, sb, s.mask, iters)
+        e = float((x.float() - xr.float()).abs().max())
+        require(e <= 5e-2, f"proj bf16 w={s.width}: {e}")
+        log(f"proj_boxcut  bf16 w={s.width}: max|dx| {e:.3e} (tol 5e-2)")
+
+    def kernel():
+        for s, u in zip(slabs, us):
+            proj_boxcut(u, s.ub, s.s, s.mask, iters)
+
+    def plain():
+        for s, u in zip(slabs, us):
+            ref.proj_boxcut_ref(u, s.ub, s.s, s.mask, iters)
+
+    ms = cuda_ms(kernel)
+    plain_ms = cuda_ms(plain, reps=5, warmup=1)
+    real = sum(int(s.mask.sum()) for s in slabs)
+    padded = sum(s.n * s.width for s in slabs)
+    rows = sum(s.n for s in slabs)
+    ev = us[0].element_size()
+    nbytes = real * (ev + 4) + padded * (1 + ev) + rows * 4
+    ops = real * (4 + 4 * iters)
+    bound_ms, bound_by = bound(nbytes, ops)
+    log(f"proj_boxcut  one sweep ({len(slabs)} slabs, {real} real entries of "
+        f"{padded}): {ms:.4f} ms; plain {plain_ms:.4f} ms; bound "
+        f"{bound_ms:.4f} ms = max({nbytes} bytes / 3.35 TB/s, {ops} ops / "
+        f"67 TFLOP/s); bytes = real*({ev} v + 4 ub) + padded*(1 mask + {ev} "
+        f"x) + {rows} rows*4 s")
+    return {"name": "proj_boxcut", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/proj.cu",
+            "replaces": "src/repro/kernels/proj.py:49",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
+def calculate_bits_equal(a, b):
+    """Two `calculate` results (g, grad, aux) are equal bit for bit."""
+    import torch
+    (g1, d1, a1), (g2, d2, a2) = a, b
+    return (torch.equal(g1, g2) and torch.equal(d1, d2)
+            and all(torch.equal(u, v) for u, v in zip(a1, a2)))
+
+
+def wide_rows():
+    """A dense-eligibility instance (a 2,048-wide slab) through the CLI
+    entry point, and K1, K3, K5 against their plain versions on synthetic
+    slabs 2,048 and 8,192 wide.  Returns K1's time on the instance's
+    2,048-wide slab."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.dual_grad import dual_grad_slab, dual_x_slab
+    from repro_torch.kernels.proj import proj_boxcut
+    from repro_torch.launch import solve
+    args = solve.build_parser().parse_args(WIDE_ARGS + ["--iterations", "50"])
+    inst = solve.generate_instance(args, log=lambda msg: log(f"  {msg}"))
+    widths = [s.width for s in inst.lp.slabs]
+    require(max(widths) > 1024, f"wide instance: widths {widths}")
+    out = solve.run(args, log=lambda msg: log(f"  {msg}"), instance=inst)
+    dual = out.result["dual_obj_final"]
+    rel = abs(dual - WIDE_DUAL_50) / abs(WIDE_DUAL_50)
+    log(f"wide 3000x5000 nu=1000 (slab widths {widths}), 50 iterations: "
+        f"dual {dual:.6f} vs the reference CLI's {WIDE_DUAL_50} (rel "
+        f"{rel:.2e}, limit 1e-4); solve loop {out.solve_seconds:.3f} s")
+    require(rel <= 1e-4, f"wide instance dual off by {rel:.2e}")
+    wide = max(out.objective.lp.slabs, key=lambda s: s.width)
+    lam, g = out.lam, torch.full((), out.gamma, device=out.lam.device)
+    ms_inst = cuda_ms(lambda: dual_x_slab(*wide[:6], lam, g))
+    log(f"dual_x_slab on the instance's {wide.n} x {wide.width} slab: "
+        f"{ms_inst:.4f} ms")
+    del out
+    args = solve.build_parser().parse_args(
+        WIDE_ARGS + ["--adaptive-continuation", "--tol-rel-dual", "1e-6",
+                     "--iterations", "3000", "--certify"])
+    out = solve.run(args, log=lambda msg: log(f"  {msg}"), instance=inst)
+    res = out.result
+    log(f"wide to tolerance: {res['stop_reason']} after "
+        f"{res['iterations_run']} iterations, dual "
+        f"{res['dual_obj_final']:.6f}, certificate "
+        f"{res['certificate_valid']}; solve loop {out.solve_seconds:.2f} s")
+    require(res["stop_reason"] == "converged", "wide solve did not converge")
+    require(res["certificate_valid"] is True, "wide certificate not valid")
+    del out, inst
+
+    rng = np.random.default_rng(12)
+    for w in (2048, 8192):
+        n, m, J = 600, 2, 5000
+        deg = rng.integers(1, w + 1, size=n)
+        mask = np.arange(w)[None, :] < deg[:, None]
+        a = np.where(mask[..., None], rng.lognormal(0, 0.5, (n, w, m)), 0)
+        c = np.where(mask, -rng.lognormal(0, 0.5, (n, w)), 0)
+        dest = np.where(mask, rng.integers(0, J, (n, w)), 0)
+        ub = np.where(mask, rng.uniform(0.5, 1.0, (n, w)), 0)
+        s = rng.uniform(1.0, 8.0, n)
+        lam = rng.uniform(0, 0.05, (m, J))
+        f = np.float32
+        t = [torch.from_numpy(v).to(DEVICE) for v in
+             (a.astype(f), c.astype(f), dest.astype(np.int32), mask,
+              ub.astype(f), s.astype(f), lam.astype(f))]
+        gam = torch.full((), 0.1, device=DEVICE)
+        x1, cx1, sq1 = dual_x_slab(*t, gam)
+        x3, g3, cx3, sq3 = dual_grad_slab(*t, gam)
+        xr, gr, cxr, sqr = ref.dual_grad_ref(*t, gam)
+        u = slab_u(t[0], t[1], t[2], t[6], gam)
+        x5 = proj_boxcut(u, t[4], t[5], t[3])
+        x5r = ref.proj_boxcut_ref(u, t[4], t[5], t[3])
+        e1 = float((x1 - xr).abs().max())
+        e3 = max(float((x3 - xr).abs().max()), float((g3 - gr).abs().max()))
+        e5 = max(float((x5 - x5r).abs().max()),
+                 float((x5 - x1).abs().max()))
+        es = max(abs(float(cx1) - float(cxr)) / abs(float(cxr)),
+                 abs(float(sq1) - float(sqr)) / abs(float(sqr)))
+        same = (torch.equal(x1, x3) and torch.equal(cx1, cx3)
+                and torch.equal(sq1, sq3))
+        ms1 = cuda_ms(lambda: dual_x_slab(*t, gam))
+        log(f"wide synthetic w={w} (n={n}, m={m}): dual_x max|dx| {e1:.3e}, "
+            f"dual_grad {e3:.3e}, proj (against plain and dual_x) {e5:.3e} "
+            f"(atol 1e-4); scalars rel "
+            f"{es:.3e} (rtol 1e-5); dual_grad = dual_x bitwise: {same}; "
+            f"proj(u) = dual_x bitwise: {torch.equal(x5, x1)}; dual_x "
+            f"{ms1:.4f} ms")
+        require(max(e1, e3, e5) <= 1e-4 and es <= 1e-5 and same,
+                f"wide kernels at w={w}")
+    return ms_inst
+
+
 def repeatability(obj, gamma):
     """At the main path's size: the row norms of preconditioning twice, and
     the first 50 agd iterations twice from lambda = 0, bit for bit."""
@@ -249,48 +616,143 @@ def repeatability(obj, gamma):
         "run to run")
 
 
-def parity():
-    """The reference's recorded perf_lp/tol_agd run, on the card, twice from
-    a fresh instance: the two runs must agree bit for bit (no atomics on
-    the path, preconditioning included)."""
+def parity_solve(lp_np, mode, count=None, normalized=True,
+                 max_iterations=None):
+    """One perf_lp/tol_agd solve on the card from a fresh transfer of the
+    instance, in `mode`; with `count`, of GlobalCountObjective, its count
+    row normalized (row_scale 1/sqrt(real edges), as the reference's
+    formulations compiler normalizes a global row) or, with `normalized`
+    False, all ones as in the reference's class."""
     import torch
     from repro_torch.convert import lp_to_torch
-    from repro_torch.core import (InstanceSpec, MatchingObjective, Maximizer,
-                                  SolveConfig, StoppingCriteria, generate,
-                                  precondition, validate_lp)
-    spec = InstanceSpec(num_sources=2000, num_destinations=1000,
-                        avg_nnz_per_row=4.0, seed=42)
-    lp_np = validate_lp(generate(spec))
+    from repro_torch.core import (GlobalCountObjective, MatchingObjective,
+                                  Maximizer, SolveConfig, StoppingCriteria,
+                                  precondition)
+    lp, _ = precondition(lp_to_torch(lp_np, DEVICE), row_norm=True)
+    kw = dict(proj_kind="boxcut", proj_iters=20, ax_mode=mode)
+    if count is None:
+        obj = MatchingObjective(lp, **kw)
+    else:
+        real = sum(int(s.mask.sum()) for s in lp.slabs)
+        scale = 1.0 / math.sqrt(real) if normalized else 1.0
+        obj = GlobalCountObjective(lp, count=count, row_scale=scale, **kw)
     cfg = SolveConfig(iterations=30000, gamma=0.01, max_step=1e-1,
                       initial_step=1e-5)
     crit = StoppingCriteria(tol_rel_dual=1e-6, tol_infeas_rel=1e-4,
-                            check_every=25)
-    runs = []
-    for _ in range(2):
-        lp, _ = precondition(lp_to_torch(lp_np, "cuda"), row_norm=True)
-        obj = MatchingObjective(lp, proj_kind="boxcut", proj_iters=20)
-        t0 = time.perf_counter()
-        res = Maximizer(cfg).maximize(obj, criteria=crit)
-        torch.cuda.synchronize()
-        runs.append((res, time.perf_counter() - t0))
-    (res, dt), (again, _) = runs
-    dual = float(res.stats.dual_obj[-1])
-    rel = abs(dual - PARITY_DUAL) / abs(PARITY_DUAL)
+                            check_every=PARITY_CHECK,
+                            max_iterations=max_iterations)
+    t0 = time.perf_counter()
+    res = Maximizer(cfg).maximize(obj, criteria=crit)
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0, obj
+
+
+def parity():
+    """The reference's recorded perf_lp/tol_agd run on the card in every ax
+    mode, aligned and sorted twice from a fresh instance (no atomics on
+    their paths: the two runs must agree bit for bit), aligned_gvals
+    bit-identical to aligned; then GlobalCountObjective."""
+    import torch
+    from repro_torch.core import InstanceSpec, generate, validate_lp
+    spec = InstanceSpec(num_sources=2000, num_destinations=1000,
+                        avg_nnz_per_row=4.0, seed=42)
+    lp_np = validate_lp(generate(spec))
     lo, hi = PARITY_ITERATIONS
-    log(f"parity perf_lp/tol_agd: {res.stop_reason.value} after "
-        f"{res.iterations_run} iterations (reference {lo}..{hi}, held "
-        f"within one check of that); "
-        f"dual {dual:.6f} vs {PARITY_DUAL:.6f} (rel {rel:.2e}, limit 1e-4); "
-        f"{dt:.2f} s, {dt / max(res.iterations_run, 1) * 1e3:.3f} ms/iter")
-    require(res.converged, "parity solve did not converge")
-    require(rel <= 1e-4, f"parity dual off by {rel:.2e}")
-    require(lo - crit.check_every <= res.iterations_run
-            <= hi + crit.check_every,
-            f"parity stopped at {res.iterations_run}, outside {lo}..{hi}")
-    require(again.iterations_run == res.iterations_run
-            and torch.equal(again.lam, res.lam),
-            "two runs of the parity solve differ")
-    log("parity: a second run from a fresh instance is bit-identical")
+    runs = {}
+    for mode in ("aligned", "aligned", "aligned_gvals", "scatter", "sorted",
+                 "sorted"):
+        res, dt, obj = parity_solve(lp_np, mode)
+        dual = float(res.stats.dual_obj[-1])
+        rel = abs(dual - PARITY_DUAL) / abs(PARITY_DUAL)
+        log(f"parity perf_lp/tol_agd {mode}: {res.stop_reason.value} after "
+            f"{res.iterations_run} iterations (reference {lo}..{hi}, held "
+            f"within one check of that); dual {dual:.6f} vs "
+            f"{PARITY_DUAL:.6f} (rel {rel:.2e}, limit 1e-4); {dt:.2f} s, "
+            f"{dt / max(res.iterations_run, 1) * 1e3:.3f} ms/iter")
+        require(res.converged, f"parity solve ({mode}) did not converge")
+        require(rel <= 1e-4, f"parity dual ({mode}) off by {rel:.2e}")
+        require(lo - PARITY_CHECK <= res.iterations_run <= hi + PARITY_CHECK,
+                f"parity ({mode}) stopped at {res.iterations_run}, outside "
+                f"{lo}..{hi}")
+        runs.setdefault(mode, []).append((res, obj))
+    (a, obj_a), (a2, _) = runs["aligned"]
+    (s1, _), (s2, _) = runs["sorted"]
+    (ag, _), = runs["aligned_gvals"]
+    for r1, r2, what in ((a, a2, "two aligned runs"),
+                         (s1, s2, "two sorted runs"),
+                         (a, ag, "aligned_gvals and aligned")):
+        require(r1.iterations_run == r2.iterations_run
+                and torch.equal(r1.lam, r2.lam), f"{what} differ")
+    log("parity: aligned twice, sorted twice, and aligned_gvals against "
+        "aligned bit-identical (iterations and lambda)")
+
+    gamma = torch.full((), 0.01, device=DEVICE)
+    x_free = sum(float(x.float().sum()) for x in obj_a.primal(a.lam, gamma))
+    count = 0.9 * x_free
+    res, dt, obj = parity_solve(lp_np, "aligned", count=count)
+    x_sum = sum(float(x.float().sum()) for x in obj.primal(res.lam, gamma))
+    mu = float(res.lam[-1])
+    log(f"GlobalCountObjective, count row normalized (count {count:.4f} = "
+        f"0.9 x the unconstrained sum of x {x_free:.4f}): "
+        f"{res.stop_reason.value} after "
+        f"{res.iterations_run} iterations, {dt:.2f} s; sum of x {x_sum:.4f} "
+        f"(limit count x (1 + 1e-3)), mu {mu:.6f}")
+    require(res.converged, "GlobalCountObjective did not converge")
+    require(x_sum <= count * (1 + 1e-3) and mu > 0,
+            "GlobalCountObjective: the count row does not bind")
+    # the same run with the reference class's all-ones row, for the record
+    # (PERF.md §6): its curvature dwarfs the normalized destination rows'
+    res, dt, obj = parity_solve(lp_np, "aligned", count=count,
+                                normalized=False, max_iterations=5000)
+    x_sum = sum(float(x.float().sum()) for x in obj.primal(res.lam, gamma))
+    log(f"GlobalCountObjective, all-ones count row (as the reference's class), "
+        f"capped at 5000 iterations: {res.stop_reason.value} after "
+        f"{res.iterations_run} iterations, {dt:.2f} s; sum of x {x_sum:.4f}, "
+        f"infeas {float(res.stats.infeas[-1]):.4e}, last rel_dual "
+        f"{res.diagnostics[-1].rel_dual:.3e}")
+
+
+def reset_counters():
+    for fn in WRAPPERS.values():
+        fn.launches = 0
+
+
+def read_counters():
+    return {name: fn.launches for name, fn in WRAPPERS.items()}
+
+
+def drive(args, inst, expect, what):
+    """One run of the CLI's entry point on the generated instance, with
+    every launch counter set to 0 just before and read just after; each
+    kernel in `expect` must have launched.  Then the launches of one dual
+    evaluation.  Returns (outcome, launches, launches per evaluation)."""
+    import torch
+    from repro_torch.launch import solve
+    reset_counters()
+    t0 = time.perf_counter()
+    out = solve.run(args, log=lambda msg: log(f"  {msg}"), instance=inst)
+    launches = read_counters()
+    wall = time.perf_counter() - t0
+    res = out.result
+    iters = res["iterations_run"]
+    log(f"{what} result: {json.dumps(res, sort_keys=True)}")
+    log(f"{what}: {wall + out.generate_seconds:.1f} s end to end = generate "
+        f"{out.generate_seconds:.1f} s (paid once) + set-up "
+        f"{out.setup_seconds:.2f} s + solve loop {out.solve_seconds:.2f} s "
+        f"({iters} iterations, "
+        f"{out.solve_seconds / max(iters, 1) * 1e3:.3f} ms/iteration) + "
+        f"certificate {out.certify_seconds:.2f} s; launches {launches}")
+    require(all(launches[k] > 0 for k in expect),
+            f"{what}: a kernel of the path never ran: {launches}")
+    require(math.isfinite(res["dual_obj_final"]), f"{what}: non-finite dual")
+    require(res["stop_reason"] == "converged",
+            f"{what}: stop reason {res['stop_reason']}")
+    lam = out.lam
+    reset_counters()
+    out.objective.calculate(lam, torch.full((), out.gamma, device=lam.device))
+    per_eval = read_counters()
+    log(f"{what}: launches of one dual evaluation: {per_eval}")
+    return out, launches, per_eval
 
 
 def main() -> int:
@@ -299,9 +761,17 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
         return 1
     from repro_torch.kernels import _build
-    from repro_torch.kernels.ax_reduce import ax_reduce_bucket_x
-    from repro_torch.kernels.dual_grad import dual_x_slab
+    from repro_torch.kernels.ax_reduce import (ax_reduce_bucket,
+                                               ax_reduce_bucket_x)
+    from repro_torch.kernels.dual_grad import dual_grad_slab, dual_x_slab
+    from repro_torch.kernels.proj import proj_boxcut
     from repro_torch.launch import solve
+    WRAPPERS.update(dual_x_slab=dual_x_slab,
+                    ax_reduce_bucket_x=ax_reduce_bucket_x,
+                    dual_grad_slab=dual_grad_slab,
+                    ax_reduce_bucket=ax_reduce_bucket,
+                    proj_boxcut=proj_boxcut)
+    t_start = time.perf_counter()
 
     # 1. device
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -320,52 +790,71 @@ def main() -> int:
 
     # 3. the main path, through the CLI's entry point
     args = solve.build_parser().parse_args(MAIN_ARGS)
-    dual_x_slab.launches = 0
-    ax_reduce_bucket_x.launches = 0
-    t0 = time.perf_counter()
-    out = solve.run(args, log=lambda msg: log(f"  {msg}"))
-    launches = {"dual_x_slab": dual_x_slab.launches,
-                "ax_reduce_bucket_x": ax_reduce_bucket_x.launches}
-    wall = time.perf_counter() - t0
-    res = out.result
-    log(f"main path result: {json.dumps(res, sort_keys=True)}")
-    iters = res["iterations_run"]
-    log(f"main path: {wall:.1f} s end to end = generate "
-        f"{out.generate_seconds:.1f} s + set-up {out.setup_seconds:.2f} s + "
-        f"solve loop {out.solve_seconds:.2f} s ({iters} iterations, "
-        f"{out.solve_seconds / max(iters, 1) * 1e3:.3f} ms/iteration) + "
-        f"certificate {out.certify_seconds:.2f} s; launches {launches}")
-    require(all(n > 0 for n in launches.values()),
-            f"a kernel never ran: {launches}")
-    require(math.isfinite(res["dual_obj_final"]), "non-finite dual")
-    require(res["stop_reason"] in ("converged", "max_iterations"),
-            f"stop reason {res['stop_reason']}")
-    require(res["certificate_valid"] is True, "certificate not valid")
+    inst = solve.generate_instance(args, log=lambda msg: log(f"  {msg}"))
+    out, launches, per_eval = drive(
+        args, inst, ("dual_x_slab", "ax_reduce_bucket_x"), "main path")
+    require(out.result["certificate_valid"] is True, "certificate not valid")
+    lam, gamma = out.lam, out.gamma
+    records = {}
+    counts = {"dual_x_slab": (launches, per_eval),
+              "ax_reduce_bucket_x": (launches, per_eval)}
 
-    # launches of one dual evaluation (an agd iteration makes one)
-    lam = out.lam
-    dual_x_slab.launches = 0
-    ax_reduce_bucket_x.launches = 0
-    out.objective.calculate(lam, torch.full((), out.gamma, device=lam.device))
-    per_iteration = {"dual_x_slab": dual_x_slab.launches,
-                     "ax_reduce_bucket_x": ax_reduce_bucket_x.launches}
-    log(f"launches of one dual evaluation: {per_iteration}")
+    # 4. K1, K2 against their plain versions, at the main path's shapes
+    records["dual_x_slab"] = check_dual_x(out.objective, lam, gamma)
+    records["ax_reduce_bucket_x"] = check_ax_reduce(out.objective)
+    repeatability(out.objective, gamma)
 
-    # 4. kernels against their plain versions, at the main path's shapes
-    k1 = check_dual_x(out.objective, lam, out.gamma)
-    k2 = check_ax_reduce(out.objective)
-    repeatability(out.objective, out.gamma)
-    del out
+    # 5. the gvals path on the same instance
+    args_g = solve.build_parser().parse_args(
+        MAIN_ARGS + ["--ax-mode", "aligned_gvals"])
+    out_g, launches_g, per_eval_g = drive(
+        args_g, inst, ("dual_grad_slab", "ax_reduce_bucket"),
+        "main path, aligned_gvals")
+    require(out_g.result["certificate_valid"] is True,
+            "aligned_gvals certificate not valid")
+    g_t = torch.full((), gamma, device=lam.device)
+    require(calculate_bits_equal(out.objective.calculate(lam, g_t),
+                                 out_g.objective.calculate(lam, g_t)),
+            "aligned_gvals and aligned evaluations differ at the main path's "
+            "lambda")
+    log("aligned_gvals: one evaluation at the main path's final lambda equals "
+        "aligned's bit for bit (g, grad, aux)")
+    counts["dual_grad_slab"] = (launches_g, per_eval_g)
+    counts["ax_reduce_bucket"] = (launches_g, per_eval_g)
+    records["dual_grad_slab"] = check_dual_grad(out_g.objective, lam, gamma)
+    records["ax_reduce_bucket"] = check_ax_reduce_gvals(out_g.objective,
+                                                        out.objective)
+    del out_g
+    torch.cuda.empty_cache()
+    xs, us, n5 = proj_path(out.objective, lam, gamma)
+    require(n5 > 0, "proj_boxcut never ran on its path")
+    log(f"proj path (ops.proj_boxcut on every slab's u): {n5} launches")
+    counts["proj_boxcut"] = ({"proj_boxcut": n5}, {"proj_boxcut": n5})
+    records["proj_boxcut"] = check_proj(out.objective, lam, gamma, xs, us)
+    del out, xs, us
+    torch.cuda.empty_cache()
+    args_s = solve.build_parser().parse_args(
+        [a for a in MAIN_ARGS if a != "--certify"] + ["--ax-mode", "scatter"])
+    out_s, _, _ = drive(args_s, inst, ("dual_grad_slab",),
+                        "main path, scatter")
+    del out_s, inst
     torch.cuda.empty_cache()
 
-    # 5. parity with the reference's recorded run
+    # 6. rows wider than 1,024
+    wide_ms = wide_rows()
+    records["dual_x_slab"]["wide_2048_ms"] = wide_ms
+
+    # 7. parity with the reference's recorded run, every mode
     parity()
 
     kernels = []
-    for rec in (k1, k2):
-        rec["launches"] = launches[rec["name"]]
-        rec["launches_per_iteration"] = per_iteration[rec["name"]]
+    for name, rec in records.items():
+        total, per = counts[name]
+        rec["launches"] = total[name]
+        rec["launches_per_iteration"] = per[name]
         kernels.append(rec)
+    log(f"chip_smoke: all phases passed in "
+        f"{time.perf_counter() - t_start:.1f} s")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -36,13 +36,11 @@ def lp_to_torch(lp, device) -> LPData:
 
 
 def plan_to_torch(plan, device) -> AxPlan:
-    """A value-carrying AxPlan -> tensors on `device`."""
-    buckets = []
-    for b in plan.buckets:
-        if b.a_dm is None:
-            raise ValueError("the port's plan must carry values (a_dm)")
-        buckets.append(AxBucket(*(_t(leaf, device) for leaf in b)))
-    return AxPlan(buckets=tuple(buckets), inv_perm=_t(plan.inv_perm, device))
+    """An AxPlan -> tensors on `device`; an index-only plan keeps
+    a_dm = None."""
+    buckets = tuple(AxBucket(*(None if leaf is None else _t(leaf, device)
+                               for leaf in b)) for b in plan.buckets)
+    return AxPlan(buckets=buckets, inv_perm=_t(plan.inv_perm, device))
 
 
 def lp_to_numpy(lp: LPData) -> LPData:

@@ -1,13 +1,16 @@
 """The port's solver core (counterpart of `repro.core`):
 
   Maximizer.maximize(obj, λ0)        -> SolveResult
-  MatchingObjective.calculate(λ, γ)  -> (g, ∇g, aux)
+  MatchingObjective.calculate(λ, γ)  -> (g, ∇g, aux)   (any ax_mode)
+  GlobalCountObjective               the same with one global count row
 """
 from .types import (AxBucket, AxPlan, ConvergenceCheck, HealthConfig,
                     IterStats, LPData, Slab, SolveConfig, SolveResult,
                     SolveState, StopReason, StoppingCriteria)
 from .projections import project, project_box, project_boxcut
-from .objectives import AX_MODES, MatchingObjective, ObjectiveAux, slab_xcarry
+from .objectives import (AX_MODES, GlobalCountObjective, MatchingObjective,
+                         ObjectiveAux, dual_value_and_grad, slab_xcarry,
+                         slab_xgvals)
 from .maximizer import Maximizer, SolveEngine, maximize
 from .update_rules import (UpdateRule, gamma_at, get_rule, max_step_at,
                            register_rule, rule_names)
@@ -22,7 +25,8 @@ __all__ = [
     "LPData", "Slab", "SolveConfig", "SolveResult", "SolveState",
     "StopReason", "StoppingCriteria",
     "project", "project_box", "project_boxcut",
-    "AX_MODES", "MatchingObjective", "ObjectiveAux", "slab_xcarry",
+    "AX_MODES", "GlobalCountObjective", "MatchingObjective", "ObjectiveAux",
+    "dual_value_and_grad", "slab_xcarry", "slab_xgvals",
     "Maximizer", "SolveEngine", "maximize",
     "UpdateRule", "gamma_at", "get_rule", "max_step_at", "register_rule",
     "rule_names",

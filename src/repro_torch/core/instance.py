@@ -22,7 +22,7 @@ The result is packed into the bucketed-slab `LPData` layout (DESIGN.md §2).
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -294,12 +294,13 @@ def _flat_a(slabs) -> np.ndarray:
     return np.concatenate(parts, axis=0)
 
 
-def _pack_ax_rows(dest, idx, J: int, widths: np.ndarray, a_flat: np.ndarray):
+def _pack_ax_rows(dest, idx, J: int, widths: np.ndarray,
+                  a_flat: Optional[np.ndarray] = None):
     """Pack per-destination gather rows under a fixed width assignment.
 
     Returns ([(edge_idx, mask, dest_ids, a_dm)] per distinct width, row_pos)
     with row_pos[j] = position of destination j in the bucket-concatenated
-    rows.
+    rows; a_dm is None when `a_flat` is not supplied (index-only plan).
     """
     order = np.argsort(dest, kind="stable")
     dest_s, idx_s = dest[order], idx[order]
@@ -315,11 +316,13 @@ def _pack_ax_rows(dest, idx, J: int, widths: np.ndarray, a_flat: np.ndarray):
         safe = np.where(msk, gather, 0)
         eidx = (np.where(msk, idx_s[safe], 0) if idx_s.size
                 else np.zeros((r, w), np.int64))
-        # value-carrying layout: destination-major static weight copy
-        # a_dm[r, q] = a_flat[edge_idx[r, q]], zero on padding
-        a_dm = (np.where(msk[..., None], a_flat[eidx], 0.0)
-                .astype(a_flat.dtype) if a_flat.size
-                else np.zeros((r, w, a_flat.shape[-1]), a_flat.dtype))
+        a_dm = None
+        if a_flat is not None:
+            # value-carrying layout: destination-major static weight copy
+            # a_dm[r, q] = a_flat[edge_idx[r, q]], zero on padding
+            a_dm = (np.where(msk[..., None], a_flat[eidx], 0.0)
+                    .astype(a_flat.dtype) if a_flat.size
+                    else np.zeros((r, w, a_flat.shape[-1]), a_flat.dtype))
         buckets.append((eidx.astype(np.int32), msk,
                         rows.astype(np.int32), a_dm))
         row_pos[rows] = pos + np.arange(r)
@@ -327,21 +330,25 @@ def _pack_ax_rows(dest, idx, J: int, widths: np.ndarray, a_flat: np.ndarray):
     return buckets, row_pos
 
 
-def build_ax_plan(lp: LPData, min_width: int = 4) -> AxPlan:
-    """Pack the value-carrying destination-major plan (DESIGN.md §3),
-    host-side, once per instance: the reference's
-    `build_ax_plan(carry_values=True)`.
+def build_ax_plan(lp: LPData, min_width: int = 4,
+                  carry_values: bool = True) -> AxPlan:
+    """Pack the destination-major companion layout (DESIGN.md §3),
+    host-side, once per instance.
 
     Destinations are bucketed by ⌈log2 in-degree⌉ into padded power-of-two
     rows, mirroring `pack_slabs`' source-side bucketing; every destination
-    (including in-degree 0) occupies exactly one row.  Each bucket packs
-    the static weight copy `a_dm`, so the Ax reduction consumes the (E,)
-    x vector directly (`kernels.ops.ax_aligned_x`).
+    (including in-degree 0) occupies exactly one row.  `carry_values=True`
+    (default) packs each bucket's static weight copy `a_dm`, so the Ax
+    reduction consumes the (E,) x vector directly
+    (`kernels.ops.ax_aligned_x`); `carry_values=False` packs the
+    index-only plan (a_dm None) the gvals-based `kernels.ops.ax_aligned`
+    consumes.
     """
     J = lp.num_destinations
     dest, idx, _ = _flat_edges(lp.slabs)
     widths = _pow2_widths(np.bincount(dest, minlength=J)[:J], min_width)
-    buckets, row_pos = _pack_ax_rows(dest, idx, J, widths, _flat_a(lp.slabs))
+    buckets, row_pos = _pack_ax_rows(
+        dest, idx, J, widths, _flat_a(lp.slabs) if carry_values else None)
     return AxPlan(
         buckets=tuple(AxBucket(edge_idx=e, mask=m, dest_ids=d, a_dm=a)
                       for e, m, d, a in buckets),

@@ -29,15 +29,25 @@ _ll = ctypes.c_longlong
 
 # argtypes/restype of every C entry point, per library
 SIGNATURES = {
-    "dual_x": {
-        "dual_x_max_width": ([], _i),
+    "dual_x": {   # K1 dual_x and K3 dual_grad
         "dual_x_scratch": ([_ll, _i], _ll),
         "dual_x_launch": ([_i] + [_vp] * 12 + [_ll, _i, _i, _i, _i, _vp], _i),
+        "dual_grad_launch": ([_i] + [_vp] * 13 + [_ll, _i, _i, _i, _i, _vp],
+                             _i),
     },
-    "ax_reduce_x": {
+    "ax_reduce_x": {   # K2
         "ax_reduce_x_max_families": ([], _i),
         "ax_reduce_x_scratch": ([_i, _i, _i], _ll),
         "ax_reduce_x_launch": ([_i] + [_vp] * 7 + [_i, _i, _i, _i, _vp], _i),
+    },
+    "ax_reduce": {   # K4
+        "ax_reduce_max_families": ([], _i),
+        "ax_reduce_scratch": ([_i, _i, _i], _ll),
+        "ax_reduce_launch": ([_i] + [_vp] * 6 + [_i, _i, _i, _i, _vp], _i),
+    },
+    "proj": {   # K5
+        "proj_scratch": ([_ll, _i], _ll),
+        "proj_launch": ([_i] + [_vp] * 6 + [_ll, _i, _i, _vp], _i),
     },
 }
 

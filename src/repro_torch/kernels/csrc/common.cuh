@@ -1,7 +1,8 @@
 // Shared device helpers of the port's kernels: element conversion for the
 // two input types (float32, bfloat16), warp-group sums and maxima by
-// butterfly shuffles, and the box-cut bisection over one row held in
-// registers across a group of lanes.
+// butterfly shuffles, and the box-cut bisection over one row: held in
+// registers across a group of lanes (rows up to 1,024 wide), or held in
+// shared or global memory across a block (any width).
 //
 // Every sum here runs in a fixed order (sequential within a lane, then
 // xor-butterfly across lanes), so results are bit-reproducible from run to
@@ -107,6 +108,107 @@ __device__ __forceinline__ float boxcut_tau(const float (&v)[VPT],
     hi = big ? hi : mid;
   }
   return need ? 0.5f * (lo + hi) : 0.0f;
+}
+
+// Register-path layout of a row of width w <= kNarrowMaxWidth: lanes a
+// row (32 for w >= 32, else the next power of two of w) and values a lane
+// (a power of two).  K1, K3 and K5 share it, so K5 fed a slab's u runs
+// K1's bisection on the same lanes.
+inline int lanes_for(int w) {
+  int L = 1;
+  while (L < w && L < 32) L <<= 1;
+  return L;
+}
+
+inline int vpt_for(int w) {
+  int vpt = 1;
+  while (vpt * 32 < w) vpt <<= 1;
+  return vpt;
+}
+
+// ---- Rows wider than one warp's registers hold: one block a row --------
+//
+// Threads a block on the wide path, and the widest row kept in dynamic
+// shared memory (v and ub, 8 bytes an entry: 128 KB of the 227 KB a block
+// may opt in to).  Wider rows live in a global scratch row instead.
+constexpr int kWideThreads = 256;
+constexpr int kWideSmemMaxWidth = 16384;
+constexpr int kNarrowMaxWidth = 32 * 32;  // the register path's widest row
+
+// Sum / max over the block, in a fixed order: each warp's butterfly, then
+// the kWideThreads/32 warp results in warp order.  Every thread gets the
+// result.  `red` is kWideThreads/32 floats of shared memory; all threads
+// must call these together.
+__device__ __forceinline__ float block_sum(float v, float* red) {
+  v = group_sum<32>(v);
+  __syncthreads();  // the previous call's readers are done with `red`
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float t = 0.0f;
+#pragma unroll
+  for (int i = 0; i < kWideThreads / 32; ++i) t += red[i];
+  return t;
+}
+
+__device__ __forceinline__ float block_max(float v, float* red) {
+  v = group_max<32>(v);
+  __syncthreads();
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float t = kNeg;
+#pragma unroll
+  for (int i = 0; i < kWideThreads / 32; ++i) t = fmaxf(t, red[i]);
+  return t;
+}
+
+// `boxcut_tau` for one row of any width held in memory (shared or global),
+// spread over the kWideThreads threads of a block: thread t owns entries
+// t, t + kWideThreads, ...  Entries the row does not own hold v = kNeg and
+// ub = 0, which add exactly 0 to every f(·) (clip0(kNeg − mid, 0) = 0),
+// so no mask is needed.  Same arithmetic as `boxcut_tau`; only the order
+// of the row sums differs.  Each thread reads only the entries it wrote.
+__device__ __forceinline__ float boxcut_tau_row(const float* v,
+                                                const float* ub, int w,
+                                                float s, int iters,
+                                                float* red) {
+  float f0 = 0.0f, hi = kNeg;
+  for (int i = threadIdx.x; i < w; i += kWideThreads) {
+    f0 += clip0(v[i], ub[i]);
+    hi = fmaxf(hi, v[i]);
+  }
+  f0 = block_sum(f0, red);
+  hi = block_max(hi, red);
+  const bool need = f0 > s;
+  float lo = fminf(0.0f, hi);
+  for (int it = 0; it < iters; ++it) {
+    const float mid = 0.5f * (lo + hi);
+    float f = 0.0f;
+    for (int i = threadIdx.x; i < w; i += kWideThreads)
+      f += clip0(v[i] - mid, ub[i]);
+    f = block_sum(f, red);
+    const bool big = f > s;
+    lo = big ? mid : lo;
+    hi = big ? hi : mid;
+  }
+  return need ? 0.5f * (lo + hi) : 0.0f;
+}
+
+// Where a wide row's v and ub live: dynamic shared memory up to
+// kWideSmemMaxWidth, else 2·w floats of global scratch a row.
+__host__ __device__ inline bool wide_in_smem(int w) {
+  return w <= kWideSmemMaxWidth;
+}
+
+// Opt the wide kernel `fn` in to the dynamic shared memory a row of width
+// w needs; returns the bytes to launch with.
+template <typename F>
+inline size_t wide_smem_bytes(F fn, int w) {
+  if (!wide_in_smem(w)) return 0;
+  const size_t bytes = 2 * sizeof(float) * (size_t)w;
+  if (bytes > 48 * 1024)
+    cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)bytes);
+  return bytes;
 }
 
 }  // namespace repro_torch

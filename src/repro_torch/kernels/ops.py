@@ -1,12 +1,20 @@
-"""Public entry points of the port's kernels (port of `repro.kernels.ops`,
-the x-carry aligned path only).
+"""Public entry points of the port's kernels (port of `repro.kernels.ops`).
 
-  dual_x_full    x*(λ), cᵀx, ‖x‖² of one slab, with the projection-kind
-                 dispatch of the reference's `dual_x_full`
-  ax_aligned_x   (m, J) Ax from a value-carrying plan and the flat (E,) x
+  proj_boxcut     batched box-cut projection of an (n, w) slab (K5)
+  dual_grad_slab  x*(λ), gvals, cᵀx, ‖x‖² of one slab (K3)
+  dual_grad_full  the same with the projection-kind dispatch
+  dual_xstar      x*(λ) of one slab through K3
+  dual_x_full     x*(λ), cᵀx, ‖x‖² of one slab, gvals-free (K1), with the
+                  projection-kind dispatch of the reference's `dual_x_full`
+  ax_reduce_bucket  (r, m) gvals gather row-sum of one plan bucket (K4)
+  ax_aligned      (m, J) Ax from an index-only plan and the flat (E, m)
+                  gvals (K4 per bucket)
+  ax_aligned_x    (m, J) Ax from a value-carrying plan and the flat (E,) x
+                  (K2 per bucket)
 
 Each launches its hand-written kernel for tensors on the card and runs the
-plain version for tensors on the CPU (see `dual_grad.py`, `ax_reduce.py`).
+plain version for tensors on the CPU (see `dual_grad.py`, `ax_reduce.py`,
+`proj.py`).
 """
 from __future__ import annotations
 
@@ -15,26 +23,93 @@ from typing import Optional
 import torch
 
 from ..core.types import AxPlan, Slab
-from .ax_reduce import ax_reduce_bucket_x
-from .dual_grad import DEFAULT_ITERS, dual_x_slab
+from . import ax_reduce as _ax_reduce
+from . import dual_grad as _dual_grad
+from . import proj as _proj
+from .dual_grad import DEFAULT_ITERS
+
+
+def proj_boxcut(v, ub, s, mask, iters: int = DEFAULT_ITERS):
+    """Batched box-cut projection (kernel: proj_boxcut)."""
+    return _proj.proj_boxcut(v, ub, s, mask, iters=iters)
+
+
+def _kind_slab(slab: Slab, proj_kind: str) -> Slab:
+    """The kernels' projection-kind dispatch: simplex runs as box-cut with
+    ub = 1e30; box and boxcut pass through (box keeps the slab's budget s,
+    as in the reference); every other kind raises NotImplementedError."""
+    if proj_kind == "simplex":
+        return slab._replace(ub=torch.full_like(slab.ub, 1e30))
+    if proj_kind not in ("boxcut", "box"):
+        raise NotImplementedError(
+            f"the kernels support boxcut/simplex/box, got {proj_kind}")
+    return slab
+
+
+def dual_grad_slab(slab: Slab, lam, gamma, iters: int = DEFAULT_ITERS,
+                   out: Optional[torch.Tensor] = None,
+                   gvals_out: Optional[torch.Tensor] = None):
+    """Fused (x*, gvals, cᵀx, ‖x‖²) for one slab (kernel: dual_grad_slab).
+    `out` (n, w) and `gvals_out` (n, w, m) receive x and gvals when
+    given."""
+    return _dual_grad.dual_grad_slab(
+        slab.a_vals, slab.c_vals, slab.dest_idx, slab.mask, slab.ub, slab.s,
+        lam, gamma, iters=iters, out=out, gvals_out=gvals_out)
+
+
+def dual_grad_full(slab: Slab, lam, gamma, proj_kind: str = "boxcut",
+                   iters: int = DEFAULT_ITERS,
+                   out: Optional[torch.Tensor] = None,
+                   gvals_out: Optional[torch.Tensor] = None):
+    """`dual_grad_slab` with the projection-kind dispatch: the entry point
+    of the gvals sweep (`core.objectives.slab_xgvals`)."""
+    return dual_grad_slab(_kind_slab(slab, proj_kind), lam, gamma,
+                          iters=iters, out=out, gvals_out=gvals_out)
+
+
+def dual_xstar(slab: Slab, lam, gamma, proj_kind: str = "boxcut",
+               iters: int = DEFAULT_ITERS):
+    """x*(λ) for one slab via the fused gvals kernel, as the reference's."""
+    return dual_grad_full(slab, lam, gamma, proj_kind, iters)[0]
 
 
 def dual_x_full(slab: Slab, lam, gamma, proj_kind: str = "boxcut",
                 iters: int = DEFAULT_ITERS,
                 out: Optional[torch.Tensor] = None):
-    """Fused (x*, cᵀx, ‖x‖²) for one slab (kernel: dual_x_slab).
+    """Fused (x*, cᵀx, ‖x‖²) for one slab (kernel: dual_x_slab), with the
+    projection-kind dispatch.  `out` (n, w) receives x when given."""
+    slab = _kind_slab(slab, proj_kind)
+    return _dual_grad.dual_x_slab(
+        slab.a_vals, slab.c_vals, slab.dest_idx, slab.mask, slab.ub, slab.s,
+        lam, gamma, iters=iters, out=out)
 
-    simplex runs as box-cut with ub = 1e30; box and boxcut pass through
-    (box keeps the slab's budget s, as in the reference); every other kind
-    raises NotImplementedError.
+
+def ax_reduce_bucket(gvals, edge_idx, mask):
+    """(r, m) float32 masked gather row-sum of one bucket, in bucket row
+    order, as the reference's entry point returns it (kernel:
+    ax_reduce_bucket, into a scratch (m, r) buffer)."""
+    r = edge_idx.shape[0]
+    out = torch.empty((gvals.shape[1], r), dtype=torch.float32,
+                      device=gvals.device)
+    rows = torch.arange(r, dtype=torch.int32, device=gvals.device)
+    return _ax_reduce.ax_reduce_bucket(gvals, edge_idx, mask, rows, out).T
+
+
+def ax_aligned(plan: AxPlan, gvals: torch.Tensor,
+               out_dtype=None) -> torch.Tensor:
+    """Scatter-free (m, J) Ax from the (E, m) gvals (edge order = slab
+    concatenation order, the plan's edge space) over an index-only plan.
+
+    Every bucket's kernel writes its destinations' columns of one (m, J)
+    float32 buffer; the plan covers each destination exactly once, so the
+    buffer needs no initialisation and no `inv_perm` gather.
     """
-    if proj_kind == "simplex":
-        slab = slab._replace(ub=torch.full_like(slab.ub, 1e30))
-    elif proj_kind not in ("boxcut", "box"):
-        raise NotImplementedError(
-            f"the dual_x kernel supports boxcut/simplex/box, got {proj_kind}")
-    return dual_x_slab(slab.a_vals, slab.c_vals, slab.dest_idx, slab.mask,
-                       slab.ub, slab.s, lam, gamma, iters=iters, out=out)
+    out = torch.empty((gvals.shape[1], plan.num_destinations),
+                      dtype=torch.float32, device=gvals.device)
+    for b in plan.buckets:
+        _ax_reduce.ax_reduce_bucket(gvals, b.edge_idx, b.mask, b.dest_ids,
+                                    out)
+    return out.to(out_dtype or gvals.dtype)
 
 
 def ax_aligned_x(plan: AxPlan, x: torch.Tensor, out_dtype=None) -> torch.Tensor:
@@ -49,5 +124,6 @@ def ax_aligned_x(plan: AxPlan, x: torch.Tensor, out_dtype=None) -> torch.Tensor:
     out = torch.empty((m, plan.num_destinations), dtype=torch.float32,
                       device=x.device)
     for b in plan.buckets:
-        ax_reduce_bucket_x(x, b.a_dm, b.edge_idx, b.mask, b.dest_ids, out)
+        _ax_reduce.ax_reduce_bucket_x(x, b.a_dm, b.edge_idx, b.mask,
+                                      b.dest_ids, out)
     return out.to(out_dtype or x.dtype)

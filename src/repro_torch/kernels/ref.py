@@ -2,8 +2,8 @@
 `repro.kernels.ref`).
 
 Each function repeats its kernel's arithmetic with ordinary tensor ops.
-The wrappers in `dual_grad.py` and `ax_reduce.py` run them for tensors on
-the CPU; `chip_smoke.py` and the tests hold each kernel against them on
+The wrappers in `dual_grad.py`, `ax_reduce.py` and `proj.py` run them for
+tensors on the CPU; `chip_smoke.py` and the tests hold each kernel against them on
 the card.  Only the order of the floating-point sums differs.
 """
 from __future__ import annotations
@@ -33,6 +33,12 @@ def boxcut_bisect_ref(v, ub, s, mask, iters: int = 40):
     return torch.where(mask, clip(v - tau[:, None]), zero)
 
 
+def proj_boxcut_ref(v, ub, s, mask, iters: int = 40):
+    """The `proj` kernel's function: the batched box-cut projection of an
+    (n, w) slab, in v's dtype, 0 on padding."""
+    return boxcut_bisect_ref(v, ub, s, mask, iters)
+
+
 def dual_x_ref(a_vals, c_vals, dest_idx, mask, ub, s, lam, gamma,
                iters: int = 40):
     """x*(λ) and its scalars for one slab (the `dual_x` kernel's function):
@@ -55,6 +61,18 @@ def dual_x_ref(a_vals, c_vals, dest_idx, mask, ub, s, lam, gamma,
     return x.to(c_vals.dtype), c_x, x_sq
 
 
+def dual_grad_ref(a_vals, c_vals, dest_idx, mask, ub, s, lam, gamma,
+                  iters: int = 40):
+    """The `dual_grad` kernel's function: `dual_x_ref` plus the per-edge
+    gradient values gvals = a ⊙ x (n, w, m) in a's dtype, 0 on padding.
+    Returns (x, gvals, c_x, x_sq)."""
+    x, c_x, x_sq = dual_x_ref(a_vals, c_vals, dest_idx, mask, ub, s, lam,
+                              gamma, iters)
+    prod = a_vals * x.to(a_vals.dtype)[..., None]
+    gvals = torch.where(mask[..., None], prod, torch.zeros_like(prod))
+    return x, gvals, c_x, x_sq
+
+
 def ax_reduce_x_ref(x, a_dm, edge_idx, mask):
     """out[r, k] = Σ_q mask[r, q] · a_dm[r, q, k] · x[edge_idx[r, q]].
 
@@ -71,5 +89,21 @@ def ax_plan_x_ref(plan, x):
     """(m, J) Ax from a value-carrying plan and the (E,) x vector, assembled
     through the plan's `inv_perm` gather."""
     rows = torch.cat([ax_reduce_x_ref(x, b.a_dm, b.edge_idx, b.mask)
+                      for b in plan.buckets], dim=0)
+    return rows[plan.inv_perm.long()].T
+
+
+def ax_reduce_ref(gvals, edge_idx, mask):
+    """out[r, k] = Σ_q mask[r, q] · gvals[edge_idx[r, q], k], summed in
+    float32.  gvals: (E, m).  Returns (r, m) float32."""
+    r, w = edge_idx.shape
+    g = gvals[edge_idx.reshape(-1).long()].reshape(r, w, -1).float()
+    return torch.where(mask[..., None], g, torch.zeros_like(g)).sum(dim=1)
+
+
+def ax_plan_ref(plan, gvals):
+    """(m, J) Ax from an index-only plan and the (E, m) gvals, assembled
+    through the plan's `inv_perm` gather."""
+    rows = torch.cat([ax_reduce_ref(gvals, b.edge_idx, b.mask)
                       for b in plan.buckets], dim=0)
     return rows[plan.inv_perm.long()].T

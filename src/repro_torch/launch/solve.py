@@ -3,11 +3,12 @@
 
 Counterpart of `python -m repro.launch.solve --formulation matching` on one
 device: generate the instance, validate it, row-normalize it (§5.1), run
-the agd dual ascent through the chunked engine on the x-carry aligned path,
-and with `--certify` extract a repaired primal witness and print the
-duality-gap certificate.  `--json` prints one result object with the
-reference's keys (logs move to stderr).  Runs on the card by default and
-raises when there is none; `--device cpu` runs the plain versions.
+the agd dual ascent through the chunked engine with the `--ax-mode` Ax
+reduction (default: the x-carry aligned path), and with `--certify`
+extract a repaired primal witness and print the duality-gap certificate.
+`--json` prints one result object with the reference's keys (logs move to
+stderr).  Runs on the card by default and raises when there is none;
+`--device cpu` runs the plain versions.
 """
 from __future__ import annotations
 
@@ -46,6 +47,14 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--sources", type=int, default=100_000)
     ap.add_argument("--destinations", type=int, default=1_000)
     ap.add_argument("--nnz-per-row", type=float, default=None)
+    ap.add_argument("--ax-mode", default="aligned",
+                    choices=["scatter", "sorted", "aligned",
+                             "aligned_gvals"],
+                    help="Ax reduction layout (default: aligned, the "
+                         "value-carrying x-only path; aligned_gvals is the "
+                         "gvals-based aligned lowering; scatter the "
+                         "scatter-add baseline).  sorted runs as scatter, "
+                         "as the reference CLI maps it")
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--iterations", type=int, default=200,
                     help="iteration cap (exact count when no tolerance is set)")
@@ -93,8 +102,16 @@ class Outcome(NamedTuple):
     certify_seconds: float   # extraction and certificate (0 without)
 
 
-def run(args, log=print) -> Outcome:
-    device = resolve_device(args.device)
+class Instance(NamedTuple):
+    """A generated, validated instance (host numpy leaves) and what its
+    generation took."""
+
+    lp: object
+    seconds: float
+
+
+def generate_instance(args, log=print) -> Instance:
+    """Generate and validate the instance the flags describe."""
     spec = InstanceSpec(
         num_sources=args.sources, num_destinations=args.destinations,
         avg_nnz_per_row=args.nnz_per_row or max(args.sources * 0.001, 8),
@@ -105,9 +122,19 @@ def run(args, log=print) -> Outcome:
         validate_lp(lp_np, name="instance")
     except LPValidationError as e:
         raise SystemExit(f"generated instance failed validation:\n{e}")
-    generate_seconds = time.perf_counter() - t_gen
-    log(f"generated {args.sources}x{args.destinations} in "
-        f"{generate_seconds:.1f}s")
+    seconds = time.perf_counter() - t_gen
+    log(f"generated {args.sources}x{args.destinations} in {seconds:.1f}s")
+    return Instance(lp_np, seconds)
+
+
+def run(args, log=print, instance: Optional[Instance] = None) -> Outcome:
+    """One solve as the flags describe.  `instance`, when given, is the
+    flags' instance generated once by `generate_instance`, so that several
+    runs in one process pay the host generation once."""
+    device = resolve_device(args.device)
+    if instance is None:
+        instance = generate_instance(args, log)
+    lp_np, generate_seconds = instance
     continuation = args.continuation or args.adaptive_continuation
     cfg = SolveConfig(
         iterations=args.iterations, gamma=args.gamma,
@@ -131,10 +158,13 @@ def run(args, log=print) -> Outcome:
     fingerprint = instance_fingerprint(lp_np)
     t0 = time.perf_counter()
     lp = lp_to_torch(lp_np, device)
-    del lp_np
+    del lp_np, instance
     if not args.no_precondition:
         lp, _ = precondition(lp, row_norm=True)
-    obj = MatchingObjective(lp)
+    # the reference CLI's matching path has no "sorted" mode (its
+    # permutation would cross shard boundaries) and runs scatter for it
+    ax_mode = "scatter" if args.ax_mode == "sorted" else args.ax_mode
+    obj = MatchingObjective(lp, ax_mode=ax_mode)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     t_solve = time.perf_counter()
@@ -146,7 +176,8 @@ def run(args, log=print) -> Outcome:
     dt = t_end - t0
     d = res.stats.dual_obj
     reason = res.stop_reason.value if res.stop_reason else "?"
-    log(f"{res.iterations_run} iterations (agd) in {dt:.2f}s "
+    log(f"{res.iterations_run} iterations (agd, ax_mode {ax_mode}) in "
+        f"{dt:.2f}s "
         f"({dt / max(res.iterations_run, 1) * 1e3:.1f} ms/iter, set-up "
         f"included); stop reason: {reason}")
     if d.size:

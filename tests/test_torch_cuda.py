@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels (K1-K5) against their plain PyTorch versions,
+and the objective's modes, on the card.
 
 Imports torch and the port only (no JAX), so it also runs where JAX is not
 installed:  PYTHONPATH=src python -m pytest tests/test_torch_cuda.py
@@ -17,8 +18,9 @@ from repro_torch.core import (InstanceSpec, MatchingObjective, Maximizer,
                               SolveConfig, StoppingCriteria, generate,
                               precondition)
 from repro_torch.kernels import ref
-from repro_torch.kernels.ax_reduce import ax_reduce_bucket_x
-from repro_torch.kernels.dual_grad import dual_x_slab
+from repro_torch.kernels.ax_reduce import ax_reduce_bucket, ax_reduce_bucket_x
+from repro_torch.kernels.dual_grad import dual_grad_slab, dual_x_slab
+from repro_torch.kernels.proj import proj_boxcut
 
 pytestmark = pytest.mark.cuda
 
@@ -45,12 +47,20 @@ def _slab(rng, n, w, m, J):
             ub.astype(f), s.astype(f), lam.astype(f))
 
 
-@pytest.mark.parametrize("w", [4, 8, 16, 32, 64, 128, 256, 1024])
+WIDTHS = [4, 8, 16, 32, 64, 128, 256, 1024, 2048, 8192, 32768]
+
+
+def _rows(w):
+    """Rows of a test slab: 1237, fewer for the widest rows."""
+    return min(1237, 2_000_000 // w)
+
+
+@pytest.mark.parametrize("w", WIDTHS)
 @pytest.mark.parametrize("m", [1, 2])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_dual_x_kernel_matches_plain(dev, w, m, dtype):
     rng = np.random.default_rng(w * 10 + m)
-    n, J = 1237, 97
+    n, J = _rows(w), 97
     a, c, dest, mask, ub, s, lam = (torch.from_numpy(v).to(dev) for v in
                                     _slab(rng, n, w, m, J))
     a, c, ub, s = (t.to(dtype) for t in (a, c, ub, s))
@@ -67,6 +77,81 @@ def test_dual_x_kernel_matches_plain(dev, w, m, dtype):
     rtol = 1e-5 if dtype == torch.float32 else 5e-2
     np.testing.assert_allclose(float(cx), float(cxr), rtol=rtol, atol=1e-6)
     np.testing.assert_allclose(float(xsq), float(xsqr), rtol=rtol, atol=1e-6)
+
+
+@pytest.mark.parametrize("w", [4, 64, 1024, 2048, 8192, 32768])
+@pytest.mark.parametrize("m", [1, 2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dual_grad_kernel_matches_plain_and_dual_x(dev, w, m, dtype):
+    """K3 against its plain version, and its x, cᵀx, ‖x‖² against K1's
+    bit for bit; gvals is written everywhere: a ⊙ x of its own x in the
+    slab's type (the plain version's product), 0 on padding."""
+    rng = np.random.default_rng(w * 7 + m)
+    n, J = _rows(w), 97
+    a, c, dest, mask, ub, s, lam = (torch.from_numpy(v).to(dev) for v in
+                                    _slab(rng, n, w, m, J))
+    a, c, ub, s = (t.to(dtype) for t in (a, c, ub, s))
+    gamma = torch.full((), 0.01, device=dev)
+    gv = torch.full((n, w, m), float("nan"), device=dev).to(dtype)
+    before = dual_grad_slab.launches
+    x, g, cx, xsq = dual_grad_slab(a, c, dest, mask, ub, s, lam, gamma,
+                                   gvals_out=gv)
+    torch.cuda.synchronize()
+    assert dual_grad_slab.launches == before + 1
+    assert g.data_ptr() == gv.data_ptr()
+    assert not torch.isnan(g.float()).any()
+    assert (g[~mask] == 0).all()
+    x1, cx1, xsq1 = dual_x_slab(a, c, dest, mask, ub, s, lam, gamma)
+    assert torch.equal(x, x1) and torch.equal(cx, cx1)
+    assert torch.equal(xsq, xsq1)
+    xr, _, cxr, xsqr = ref.dual_grad_ref(a, c, dest, mask, ub, s, lam,
+                                          gamma.to(dtype))
+    tol = 1e-4 if dtype == torch.float32 else 5e-2
+    np.testing.assert_allclose(x.float().cpu().numpy(),
+                               xr.float().cpu().numpy(), atol=tol)
+    zero = torch.zeros((), dtype=dtype, device=dev)
+    assert torch.equal(g, torch.where(mask[..., None], a * x[..., None],
+                                      zero))
+    rtol = 1e-5 if dtype == torch.float32 else 5e-2
+    np.testing.assert_allclose(float(cx), float(cxr), rtol=rtol, atol=1e-6)
+    np.testing.assert_allclose(float(xsq), float(xsqr), rtol=rtol, atol=1e-6)
+
+
+@pytest.mark.parametrize("w", [4, 16, 64, 1024, 2048, 8192, 32768])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_proj_kernel_matches_plain(dev, w, dtype):
+    rng = np.random.default_rng(w + 5)
+    n = _rows(w)
+    deg = rng.integers(0, w + 1, size=n)
+    mask = np.arange(w)[None, :] < deg[:, None]
+    v = np.where(mask, rng.uniform(-1.0, 2.0, (n, w)), 0)
+    ub = np.where(mask, rng.uniform(0.5, 1.0, (n, w)), 0)
+    s = rng.uniform(0.5, 4.0, n)
+    vt, ubt, st = (torch.from_numpy(t).to(dev).to(dtype) for t in (v, ub, s))
+    mt = torch.from_numpy(mask).to(dev)
+    before = proj_boxcut.launches
+    x = proj_boxcut(vt, ubt, st, mt)
+    torch.cuda.synchronize()
+    assert proj_boxcut.launches == before + 1
+    xr = ref.proj_boxcut_ref(vt, ubt, st, mt)
+    tol = 1e-5 if dtype == torch.float32 else 5e-2
+    np.testing.assert_allclose(x.float().cpu().numpy(),
+                               xr.float().cpu().numpy(), atol=tol)
+
+
+@pytest.mark.parametrize("w", [64, 1024, 2048, 8192])
+def test_proj_of_u_gives_dual_x(dev, w):
+    """K5 fed a slab's pre-projection u gives K1's x (the same bisection
+    on the same lanes)."""
+    rng = np.random.default_rng(w + 9)
+    n, J = _rows(w), 97
+    a, c, dest, mask, ub, s, lam = (torch.from_numpy(v).to(dev) for v in
+                                    _slab(rng, n, w, 1, J))
+    gamma = torch.full((), 0.1, device=dev)
+    x1, _, _ = dual_x_slab(a, c, dest, mask, ub, s, lam, gamma)
+    u = -(a[:, :, 0] * lam[0][dest.long()] + c) / gamma
+    x5 = proj_boxcut(u, ub, s, mask)
+    np.testing.assert_allclose(x5.cpu().numpy(), x1.cpu().numpy(), atol=1e-4)
 
 
 def test_dual_x_kernel_is_deterministic(dev):
@@ -110,6 +195,92 @@ def test_ax_reduce_kernel_matches_plain(dev, w, m, dtype):
     untouched = torch.ones(J, dtype=torch.bool, device=dev)
     untouched[d_t.long()] = False
     assert torch.isnan(out[:, untouched]).all()
+
+
+@pytest.mark.parametrize("w", [4, 64, 1024, 2048, 8192, 131072])
+@pytest.mark.parametrize("m", [1, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ax_reduce_gvals_kernel_matches_plain_and_x_carry(dev, w, m, dtype):
+    """K4 against its plain version; fed gvals = a ⊙ x it gives K2's Ax
+    from (x, a_dm) bit for bit (the same products, summed in one order)."""
+    rng = np.random.default_rng(w * 3 + m)
+    E = 300_000
+    r = max(1, min(300, 2_000_000 // w))
+    deg = rng.integers(1, w + 1, size=r)
+    mask = np.arange(w)[None, :] < deg[:, None]
+    idx = np.where(mask, rng.integers(0, E, (r, w)), 0).astype(np.int32)
+    a_flat = rng.lognormal(0, 0.5, (E, m))
+    x = rng.uniform(0, 1, E)
+    J = r + 5
+    dest_ids = rng.permutation(J)[:r].astype(np.int32)
+    x_t = torch.from_numpy(x).to(dev).to(dtype)
+    af_t = torch.from_numpy(a_flat).to(dev).to(dtype)
+    idx_t, mask_t, d_t = (torch.from_numpy(v).to(dev)
+                          for v in (idx, mask, dest_ids))
+    a_dm = torch.where(mask_t[..., None], af_t[idx_t.long()],
+                       torch.zeros((), dtype=dtype, device=dev))
+    gvals = af_t * x_t[:, None]
+    out = torch.full((m, J), float("nan"), device=dev)
+    before = ax_reduce_bucket.launches
+    ax_reduce_bucket(gvals, idx_t, mask_t, d_t, out)
+    torch.cuda.synchronize()
+    assert ax_reduce_bucket.launches == before + 1
+    want = ref.ax_reduce_ref(gvals, idx_t, mask_t).T
+    got = out[:, d_t.long()]
+    tol = 1e-5 if dtype == torch.float32 else 5e-2
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=tol, atol=tol)
+    untouched = torch.ones(J, dtype=torch.bool, device=dev)
+    untouched[d_t.long()] = False
+    assert torch.isnan(out[:, untouched]).all()
+    out_x = torch.full((m, J), float("nan"), device=dev)
+    ax_reduce_bucket_x(x_t, a_dm.contiguous(), idx_t, mask_t, d_t, out_x)
+    assert torch.equal(out[:, d_t.long()], out_x[:, d_t.long()])
+
+
+def test_aligned_gvals_equals_aligned_on_card(dev):
+    """One evaluation and a 300-iteration trajectory: `aligned_gvals`
+    (K3 + K4) equals `aligned` (K1 + K2) bit for bit."""
+    lp_np = generate(InstanceSpec(num_sources=20000, num_destinations=300,
+                                  avg_nnz_per_row=30, seed=1))
+    lp, _ = precondition(lp_to_torch(lp_np, dev), row_norm=True)
+    objs = [MatchingObjective(lp, ax_mode=mode)
+            for mode in ("aligned", "aligned_gvals")]
+    lam = torch.rand(objs[0].dual_shape, device=dev,
+                     generator=torch.Generator(dev).manual_seed(0))
+    gamma = torch.full((), 0.01, device=dev)
+    (g1, d1, a1), (g2, d2, a2) = (o.calculate(lam, gamma) for o in objs)
+    assert torch.equal(g1, g2) and torch.equal(d1, d2)
+    assert all(torch.equal(u, v) for u, v in zip(a1, a2))
+    cfg = SolveConfig(iterations=300, gamma=0.01, max_step=0.1)
+    k3, k4 = dual_grad_slab.launches, ax_reduce_bucket.launches
+    r1, r2 = (Maximizer(cfg).maximize(o) for o in objs)
+    assert dual_grad_slab.launches > k3 and ax_reduce_bucket.launches > k4
+    assert torch.equal(r1.lam, r2.lam)
+    assert np.array_equal(r1.stats.dual_obj, r2.stats.dual_obj)
+
+
+@pytest.mark.parametrize("mode", ["scatter", "sorted"])
+def test_scatter_modes_on_card(dev, mode):
+    """scatter and sorted on the card against the CPU's calculate, and
+    sorted repeatable bit for bit."""
+    lp_np = generate(InstanceSpec(num_sources=20000, num_destinations=300,
+                                  avg_nnz_per_row=30, seed=2))
+    out = {}
+    for d in ("cpu", dev):
+        lp, _ = precondition(lp_to_torch(lp_np, d), row_norm=True)
+        obj = MatchingObjective(lp, ax_mode=mode)
+        lam = torch.from_numpy(np.random.default_rng(0).uniform(
+            0, 1, obj.dual_shape).astype(np.float32)).to(d)
+        gamma = torch.full((), 0.01, device=d)
+        out[str(d)] = [obj.calculate(lam, gamma) for _ in range(2)]
+    (gc, dc, _), _ = out["cpu"]
+    (g1, d1, _), (g2, d2, _) = out["cuda"]
+    np.testing.assert_allclose(float(g1), float(gc), rtol=1e-5)
+    np.testing.assert_allclose(d1.cpu().numpy(), dc.numpy(), rtol=1e-5,
+                               atol=1e-4)
+    if mode == "sorted":
+        assert torch.equal(g1, g2) and torch.equal(d1, d2)
 
 
 def test_solve_on_card_matches_cpu(dev):

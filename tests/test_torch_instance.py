@@ -76,6 +76,14 @@ def test_build_ax_plan_bit_identical(kw):
                       tinst.build_ax_plan(t))
 
 
+@pytest.mark.parametrize("kw", SPECS)
+def test_build_ax_plan_index_only_bit_identical(kw):
+    r, t = _pair(kw)
+    plan_t = tinst.build_ax_plan(t, carry_values=False)
+    assert all(b.a_dm is None for b in plan_t.buckets)
+    _assert_same_tree(rinst.build_ax_plan(r, carry_values=False), plan_t)
+
+
 def test_validate_lp_same_problems():
     r, t = _pair(SPECS[0])
     assert tinst.validate_lp(t) is t

@@ -26,8 +26,9 @@ from repro_torch.core import instance as tinst
 from repro_torch.core.types import Slab as TSlab
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
-from repro_torch.kernels.ax_reduce import ax_reduce_bucket_x
-from repro_torch.kernels.dual_grad import dual_x_slab
+from repro_torch.kernels.ax_reduce import ax_reduce_bucket, ax_reduce_bucket_x
+from repro_torch.kernels.dual_grad import dual_grad_slab, dual_x_slab
+from repro_torch.kernels.proj import proj_boxcut
 
 
 def _slab_np(seed, n, w, m, J):
@@ -191,3 +192,101 @@ def test_plain_versions_match_oracles(instance):
                                       jnp.asarray(lam.numpy()),
                                       jnp.float32(0.01))
     np.testing.assert_allclose(x.numpy(), np.asarray(xo), atol=1e-5)
+
+
+# K3, K4, K5: the CASES above plus one 2,048-wide case (rows past the
+# register path of the kernels), float32 and bfloat16.
+WIDE_CASES = CASES + [(2048, 1, 8)]
+DTYPES = [(jnp.float32, torch.float32, 1e-5),
+          (jnp.bfloat16, torch.bfloat16, 5e-2)]
+
+
+@pytest.mark.parametrize("w,m,n", WIDE_CASES)
+@pytest.mark.parametrize("jd,td,tol", DTYPES)
+def test_dual_grad_slab_matches_pallas(w, m, n, jd, td, tol):
+    slab, lam = _slab_np(w + 3 * m, n, w, m, 23)
+    sj, st = _to(slab, jd, td)
+    gamma = 0.1
+    before = dual_grad_slab.launches
+    x, g, cx, xsq = tops.dual_grad_slab(st, torch.from_numpy(lam),
+                                        torch.tensor(gamma))
+    assert dual_grad_slab.launches == before       # the CPU runs no kernel
+    assert g.shape == (n, w, m) and g.dtype == td
+    assert (g[~st.mask] == 0).all()
+    xp, gp, cxp, xsqp = rops.dual_grad_slab(sj, jnp.asarray(lam),
+                                            jnp.float32(gamma))
+    np.testing.assert_allclose(x.float().numpy(), np.asarray(xp, np.float32),
+                               atol=tol)
+    # gvals = a ⊙ x: a reaches ~5, so x's tolerance scales with it
+    np.testing.assert_allclose(g.float().numpy(), np.asarray(gp, np.float32),
+                               atol=tol * float(slab.a_vals.max()))
+    np.testing.assert_allclose(float(cx), float(cxp), rtol=tol)
+    np.testing.assert_allclose(float(xsq), float(xsqp), rtol=tol)
+    x1, cx1, xsq1 = tops.dual_x_full(st, torch.from_numpy(lam),
+                                     torch.tensor(gamma))
+    assert torch.equal(x, x1) and torch.equal(cx, cx1)
+    assert torch.equal(xsq, xsq1)
+    assert torch.equal(tops.dual_xstar(st, torch.from_numpy(lam),
+                                       torch.tensor(gamma)), x)
+
+
+@pytest.mark.parametrize("w,m,n", WIDE_CASES)
+@pytest.mark.parametrize("jd,td,tol", DTYPES)
+def test_ax_reduce_bucket_gvals_matches_pallas(w, m, n, jd, td, tol):
+    E = 500
+    rng = np.random.default_rng(w * m + n)
+    deg = rng.integers(0, w + 1, size=n)
+    mask = np.arange(w)[None, :] < deg[:, None]
+    idx = np.where(mask, rng.integers(0, E, (n, w)), 0).astype(np.int32)
+    gvals = rng.lognormal(0, 0.5, (E, m)).astype(np.float32)
+    before = ax_reduce_bucket.launches
+    got = tops.ax_reduce_bucket(torch.from_numpy(gvals).to(td),
+                                torch.from_numpy(idx), torch.from_numpy(mask))
+    assert ax_reduce_bucket.launches == before
+    args = (jnp.asarray(gvals, jd), jnp.asarray(idx), jnp.asarray(mask))
+    for want in (rops.ax_reduce_bucket(*args), rref.ax_reduce_ref(*args)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=tol,
+                                   atol=tol)
+
+
+@pytest.mark.parametrize("w,m,n", WIDE_CASES)
+@pytest.mark.parametrize("jd,td,tol", DTYPES)
+def test_proj_boxcut_matches_pallas(w, m, n, jd, td, tol):
+    rng = np.random.default_rng(w + n)
+    deg = rng.integers(0, w + 1, size=n)
+    mask = np.arange(w)[None, :] < deg[:, None]
+    v = np.where(mask, rng.uniform(-1.0, 2.0, (n, w)), 0).astype(np.float32)
+    ub = np.where(mask, rng.uniform(0.5, 1.0, (n, w)), 0).astype(np.float32)
+    s = rng.uniform(0.5, 4.0, n).astype(np.float32)
+    before = proj_boxcut.launches
+    x = tops.proj_boxcut(*(torch.from_numpy(a).to(td) for a in (v, ub, s)),
+                         torch.from_numpy(mask))
+    assert proj_boxcut.launches == before and x.dtype == td
+    args = (jnp.asarray(v, jd), jnp.asarray(ub, jd), jnp.asarray(s, jd),
+            jnp.asarray(mask))
+    for want in (rops.proj_boxcut(*args), rref.boxcut_bisect_ref(*args)):
+        np.testing.assert_allclose(x.float().numpy(),
+                                   np.asarray(want, np.float32), atol=tol)
+
+
+def test_ax_aligned_matches_reference(instance):
+    """The gvals Ax over the index-only plan against the reference's, and
+    equal bit for bit to the x-carry Ax when gvals = a ⊙ x."""
+    r, t = instance
+    plan_r = jax.tree.map(jnp.asarray, rinst.build_ax_plan(
+        r, carry_values=False))
+    plan_t = plan_to_torch(tinst.build_ax_plan(t, carry_values=False), "cpu")
+    assert all(b.a_dm is None for b in plan_t.buckets)
+    E = sum(s.n * s.width for s in t.slabs)
+    x = np.random.default_rng(0).uniform(0, 1, E).astype(np.float32)
+    a_flat = np.concatenate([s.a_vals.reshape(-1, s.a_vals.shape[-1])
+                             for s in t.slabs])
+    gvals = torch.from_numpy(a_flat) * torch.from_numpy(x)[:, None]
+    got = tops.ax_aligned(plan_t, gvals)
+    want = jax.jit(rops.ax_aligned, static_argnames="use_pallas")(
+        plan_r, jnp.asarray(gvals.numpy()))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-6)
+    assert torch.equal(tref.ax_plan_ref(plan_t, gvals), got)
+    plan_x = plan_to_torch(tinst.build_ax_plan(t), "cpu")
+    assert torch.equal(tops.ax_aligned_x(plan_x, torch.from_numpy(x)), got)

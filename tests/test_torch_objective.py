@@ -1,5 +1,5 @@
-"""The port's MatchingObjective (x-carry aligned mode) against the JAX
-package's, one evaluation at a time.
+"""The port's MatchingObjective, in each of the four ax modes, against the
+JAX package's in the same mode, one evaluation at a time.
 
 Both run on the same generated, row-normalized instance at the same
 seeded λ.  calculate: g, ∇g and the aux scalars at rtol 1e-5 (∇g at an
@@ -29,14 +29,18 @@ SPECS = [dict(num_sources=2000, num_destinations=100, avg_nnz_per_row=8,
               seed=11, num_families=2)]
 
 
-@pytest.fixture(scope="module", params=range(len(SPECS)))
+@pytest.fixture(scope="module", params=[
+    (i, mode) for i in range(len(SPECS))
+    for mode in ("aligned", "aligned_gvals", "sorted", "scatter")],
+    ids=lambda p: f"{p[0]}-{p[1]}")
 def pair(request):
-    kw = SPECS[request.param]
+    i, mode = request.param
+    kw = SPECS[i]
     lp_r, _ = jax.jit(rprecondition)(jax.tree.map(
         jnp.asarray, rinst.generate(rinst.InstanceSpec(**kw))))
     lp_t, _ = tprecondition(lp_to_torch(
         tinst.generate(tinst.InstanceSpec(**kw)), "cpu"), row_norm=True)
-    return (RObjective(lp_r, ax_mode="aligned"), TObjective(lp_t))
+    return (RObjective(lp_r, ax_mode=mode), TObjective(lp_t, ax_mode=mode))
 
 
 def _lam(obj_t, seed, scale):
@@ -87,10 +91,8 @@ def test_primal_rows_bitwise_equal_primal(pair):
         assert torch.equal(got, full[si][torch.from_numpy(rows)])
 
 
-def test_other_ax_modes_not_ported(pair):
+def test_unknown_ax_mode_raises(pair):
     _, obj_t = pair
-    for mode in ("scatter", "sorted", "aligned_gvals"):
-        with pytest.raises(NotImplementedError, match="queue A item 9"):
-            TObjective(obj_t.lp, ax_mode=mode)
+    assert obj_t.ax_mode in ("aligned", "aligned_gvals", "sorted", "scatter")
     with pytest.raises(ValueError):
         TObjective(obj_t.lp, ax_mode="bogus")

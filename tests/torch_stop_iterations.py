@@ -6,9 +6,9 @@ The instance is the `--quick` one of `benchmarks/perf_lp.py` (2,000 x 1,000,
 nu = 4, seed 42, row-normalized, boxcut with 20 bisection steps, agd at
 gamma 0.01, tol_rel_dual 1e-6 and tol_infeas_rel 1e-4 checked every 25).
 At that tolerance the stopping check moves with the summation order alone,
-so the reference runs under each of its ax modes; their spread is what
-`chip_smoke.py` holds the port's stopping iteration to.  Not collected by
-pytest: one run takes about a minute.
+so the reference and the port run under each of their ax modes; the
+reference's spread is what `chip_smoke.py` holds the port's stopping
+iteration to.  Not collected by pytest: it takes a few minutes.
 """
 import jax
 import jax.numpy as jnp
@@ -50,9 +50,12 @@ def main():
     lp_t, _ = tcore.precondition(
         lp_to_torch(tcore.generate(tcore.InstanceSpec(**SPEC)), "cpu"),
         row_norm=True)
-    obj = tcore.MatchingObjective(lp_t, proj_kind="boxcut", proj_iters=20)
-    show("port (aligned), cpu", tcore.Maximizer(tcore.SolveConfig(**CONFIG))
-         .maximize(obj, criteria=tcore.StoppingCriteria(**CRITERIA)))
+    for mode in ("aligned", "aligned_gvals", "sorted", "scatter"):
+        obj = tcore.MatchingObjective(lp_t, proj_kind="boxcut",
+                                      proj_iters=20, ax_mode=mode)
+        show(f"port ax_mode={mode}, cpu",
+             tcore.Maximizer(tcore.SolveConfig(**CONFIG)).maximize(
+                 obj, criteria=tcore.StoppingCriteria(**CRITERIA)))
 
 
 if __name__ == "__main__":

@@ -15,24 +15,30 @@ nothing of JAX or of the JAX package.  Phases, each failing loudly:
               counters of one dual evaluation (what an agd iteration runs
               once).
   4. kernels  K1 and K2 against their plain PyTorch versions on the card,
-              on the main path's own tensors (every slab / every bucket in
-              float32, bfloat16 copies of the widest and narrowest), with
-              times (CUDA events, median of 20 after warm-up), the
-              memory/operation bound, and a library yardstick where one
-              PyTorch call computes the same function; then row norms
-              and 50 main-path iterations, each twice, bit for bit
+              on the main path's own tensors (K1: every slab in float32,
+              bfloat16 copies of the widest and narrowest; K2: every
+              bucket alone and the whole plan in one call, float32 and a
+              bfloat16 copy, bit for bit against its kernel-order plain
+              version), with times (CUDA events, median of 20 after
+              warm-up), the memory/operation bound, and a library
+              yardstick where one PyTorch call computes the same function
+              (K2: the ratio to it, and the same Ax over work tables of
+              other item sizes and bands); then row norms and 50 main-path
+              iterations, each twice, bit for bit
   5. gvals    the main path's instance again through the CLI entry point
               with --ax-mode aligned_gvals --certify (K3 + K4), then one
               evaluation there equal bit for bit to the aligned path's at
-              its final lambda; K3, K4 and K5 against their plain versions
-              at the main path's shapes, timed as in 4 (K5 through its
+              its final lambda; K3, K4 (as K2 in 4, and equal to K2's Ax
+              bit for bit) and K5 against their plain versions at the
+              main path's shapes, timed as in 4 (K5 through its
               entry point `ops.proj_boxcut`, on every slab's
               pre-projection u, which it must map to K1's x); then the
               same instance with --ax-mode scatter
   6. wide     3,000 x 5,000 at nu = 1000 (a 2,048-wide slab) through the
               CLI entry point: 50 iterations against the reference CLI's
-              dual, then to tolerance with a valid certificate; K1, K3, K5
-              against their plain versions at widths 2,048 and 8,192
+              dual, then to tolerance with a valid certificate; K1 on its
+              3 x 2,048 slab timed beside its plain version and bound; K1,
+              K3, K5 against their plain versions at widths 2,048 and 8,192
   7. parity   the reference's recorded perf_lp/tol_agd run (2000 x 1000,
               nu = 4, seed 42) in each ax mode: converged, final dual
               within 1e-4 relative of -2340.3547, stopped within one check
@@ -79,6 +85,9 @@ PARITY_DUAL = -2340.354736328125       # perf_lp/tol_agd, bench_results.json
 # tol_rel_dual 1e-6 the stopping check moves with the summation order alone
 PARITY_ITERATIONS = (1600, 2150)
 PARITY_CHECK = 25
+# work tables (item size C, band entries) timed beside the default
+TABLE_SWEEP = ((2048, None), (1024, None), (4096, None), (1024, 1 << 22),
+               (4096, 1 << 22), (2048, 1 << 21), (2048, 1 << 23))
 WRAPPERS = {}    # kernel wrapper name -> wrapper, with its launch counter
 
 
@@ -177,43 +186,108 @@ def check_dual_x(obj, lam, gamma):
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
+def _ax_plan_checks(what, plan, work, src, m, kernel, plain, items_kw):
+    """One plan-level Ax (K2 or K4) into a NaN-filled buffer against its
+    plain version (rtol 1e-5 of max(1, |ax|)) and, bit for bit, against
+    the kernels' own order of the sums; twice, bit-identical.  Returns
+    the Ax and its max |error|."""
+    import torch
+    from repro_torch.kernels import ref
+    J = plan.num_destinations
+    outs = []
+    for _ in range(2):
+        out = torch.full((m, J), float("nan"), device=src.device)
+        kernel(src, plan, out, work)
+        outs.append(out)
+    require(not torch.isnan(outs[0]).any(),
+            f"{what}: a destination was not written")
+    require(torch.equal(outs[0], outs[1]), f"{what}: two runs differ")
+    want = plain(plan, src)
+    rel = float(((outs[0] - want).abs() / want.abs().clamp_min(1.0)).max())
+    require(rel <= 1e-5, f"{what}: rel err {rel} > 1e-5")
+    require(torch.equal(outs[0], ref.ax_items_ref(plan, work, **items_kw)),
+            f"{what}: not the bits of its kernel-order plain version")
+    return outs[0], float((outs[0] - want).abs().max())
+
+
+def _bf16_plan(plan):
+    from repro_torch.core.types import AxPlan
+    import torch
+    return AxPlan(tuple(b._replace(a_dm=None if b.a_dm is None else
+                                   b.a_dm.to(torch.bfloat16))
+                        for b in plan.buckets), plan.inv_perm)
+
+
+def _ax_items_line(work, plan):
+    lens = (work.items[:, 3] - work.items[:, 2]).long()
+    return (f"work table: {work.items.shape[0]} items of at most C = "
+            f"{work.item_entries} entries ({int(lens.sum())} entries read of "
+            f"{sum(b.mask.numel() for b in plan.buckets)} in the plan), "
+            f"{work.multi.shape[0]} rows of several items, "
+            f"{work.num_partials} partials")
+
+
+def _table_sweep(what, plan, full, ms, run):
+    """The same Ax over work tables of other item sizes C and bands, each
+    checked against `full` and timed as the default table was (`ms`).
+    Returns {"C/band": ms}."""
+    import torch
+    from repro_torch.kernels.ax_reduce import (BAND_ENTRIES, ITEM_ENTRIES,
+                                               plan_work)
+    sweep = {f"{ITEM_ENTRIES}/{BAND_ENTRIES}": ms}
+    for c, band in TABLE_SWEEP:
+        work = plan_work(plan, c, band)
+        require(torch.allclose(run(work), full, rtol=1e-5, atol=1e-5),
+                f"{what} C={c} band={band}")
+        sweep[f"{c}/{band}"] = cuda_ms(lambda: run(work))
+    log(f"{what}  one Ax by work table (item size C / band entries, "
+        f"{ITEM_ENTRIES}/{BAND_ENTRIES} the default): " + ", ".join(
+            f"{k}: {v:.4f} ms" for k, v in sweep.items()))
+    return sweep
+
+
 def check_ax_reduce(obj):
-    """K2 on every bucket of the main path's plan against its plain version,
-    fed the main path's own x buffer."""
+    """K2 on every bucket of the main path's plan (one bucket a call) and
+    on the whole plan (one call, the main path's) against its plain
+    version, fed the main path's own x buffer."""
     import torch
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.ax_reduce import ax_reduce_bucket_x
-    plan, x = obj._plan, obj._xbuf
+    from repro_torch.kernels.ax_reduce import (ax_reduce_bucket_x,
+                                               ax_reduce_plan_x, plan_work)
+    plan, x, work = obj._plan, obj._xbuf, obj._work
     m, J = obj.lp.m, obj.lp.num_destinations
     out = torch.full((m, J), float("nan"), device=x.device)
-    err = 0.0
     for b in plan.buckets:
         ax_reduce_bucket_x(x, b.a_dm, b.edge_idx, b.mask, b.dest_ids, out)
         want = ref.ax_reduce_x_ref(x, b.a_dm, b.edge_idx, b.mask).T
         got = out[:, b.dest_ids.long()]
         rel = float(((got - want).abs() / want.abs().clamp_min(1.0)).max())
-        err = max(err, float((got - want).abs().max()))
         require(rel <= 1e-5, f"ax_reduce w={b.width}: rel err {rel} > 1e-5")
     require(not torch.isnan(out).any(),
             "ax_reduce: a destination was not written")
-    full = ref.ax_plan_x_ref(plan, x)
-    require(torch.allclose(out, full, rtol=1e-5, atol=1e-5), "ax assembly")
-    log(f"ax_reduce_bucket_x  f32 all {len(plan.buckets)} buckets (widths "
-        f"{plan.buckets[0].width}..{plan.buckets[-1].width}): max|d ax| "
-        f"{err:.3e} (rtol 1e-5 of max(1, |ax|))")
-    for b in (plan.buckets[0], plan.buckets[-1]):
-        xb, ab = x.to(torch.bfloat16), b.a_dm.to(torch.bfloat16)
-        ob = torch.zeros((m, J), device=x.device)
-        ax_reduce_bucket_x(xb, ab, b.edge_idx, b.mask, b.dest_ids, ob)
-        want = ref.ax_reduce_x_ref(xb, ab, b.edge_idx, b.mask).T
-        got = ob[:, b.dest_ids.long()]
-        rel = float(((got - want).abs() / want.abs().clamp_min(1.0)).max())
-        require(rel <= 5e-2, f"ax_reduce bf16 w={b.width}: {rel}")
-        log(f"ax_reduce_bucket_x  bf16 w={b.width}: rel err {rel:.3e} "
-            f"(tol 5e-2)")
+    full, err = _ax_plan_checks("ax_reduce_plan_x", plan, work, x, m,
+                                ax_reduce_plan_x, ref.ax_plan_x_ref,
+                                {"x": x})
+    require(torch.equal(full, out),
+            "ax_reduce_x: the plan and the per-bucket calls differ in bits")
+    log(f"ax_reduce_plan_x  f32, all {len(plan.buckets)} buckets (widths "
+        f"{plan.buckets[0].width}..{plan.buckets[-1].width}) one by one and "
+        f"as one plan: max|d ax| {err:.3e} (rtol 1e-5 of max(1, |ax|)); the "
+        f"two, two runs and the kernel-order plain version (ref.ax_items_ref) "
+        f"bit for bit; {_ax_items_line(work, plan)}")
+    plan_b, xb = _bf16_plan(plan), x.to(torch.bfloat16)
+    ob = torch.full((m, J), float("nan"), device=x.device)
+    ax_reduce_plan_x(xb, plan_b, ob, plan_work(plan_b))
+    want = ref.ax_plan_x_ref(plan_b, xb)
+    rel = float(((ob - want).abs() / want.abs().clamp_min(1.0)).max())
+    require(rel <= 5e-2, f"ax_reduce_plan_x bf16: {rel}")
+    log(f"ax_reduce_plan_x  bf16 whole plan: rel err {rel:.3e} (tol 5e-2)")
+    del plan_b, xb, ob
 
-    ms = cuda_ms(lambda: ops.ax_aligned_x(plan, x))
+    ms = cuda_ms(lambda: ops.ax_aligned_x(plan, x, work=work))
     plain_ms = cuda_ms(lambda: ref.ax_plan_x_ref(plan, x), reps=5, warmup=1)
+    sweep = _table_sweep("ax_reduce_plan_x", plan, full, ms,
+                         lambda w: ops.ax_aligned_x(plan, x, work=w))
     # the library yardstick: one cuSPARSE CSR x vector product of the same A
     rows, cols, vals = [], [], []
     for b in plan.buckets:
@@ -228,7 +302,7 @@ def check_ax_reduce(obj):
     csr = coo.coalesce().to_sparse_csr()
     del coo, rows, cols, vals
     lib = (csr @ x[:, None]).reshape(m, J)
-    require(torch.allclose(lib, out, rtol=1e-4, atol=1e-4), "CSR yardstick")
+    require(torch.allclose(lib, full, rtol=1e-4, atol=1e-4), "CSR yardstick")
     library_ms = cuda_ms(lambda: csr @ x[:, None])
     # bytes the function must move: a_dm, edge_idx and the x gather at the
     # real entries only (the kernel skips masked ones), the mask over every
@@ -239,17 +313,19 @@ def check_ax_reduce(obj):
     ea, ex = plan.buckets[0].a_dm.element_size(), x.element_size()
     nbytes = real * (ea * m + 4 + ex) + entries + prow * 4 + m * J * 4
     bound_ms, bound_by = bound(nbytes, 2 * m * real)
-    log(f"ax_reduce_bucket_x  one Ax ({len(plan.buckets)} buckets, {real} "
-        f"real entries of {entries}): {ms:.4f} ms; plain {plain_ms:.4f} ms; "
-        f"CSR library {library_ms:.4f} ms; bound {bound_ms:.4f} ms = "
-        f"{nbytes} bytes / 3.35 TB/s; bytes = real*({ea}m + 4 idx + {ex} x) "
-        f"+ entries*1 mask + {prow} rows*4 dest + 4mJ")
-    return {"name": "ax_reduce_bucket_x", "route": "cuda",
+    log(f"ax_reduce_plan_x  one Ax ({len(plan.buckets)} buckets, {real} "
+        f"real entries of {entries}; 1 call, 2 CUDA launches): {ms:.4f} ms; "
+        f"plain {plain_ms:.4f} ms; CSR library {library_ms:.4f} ms (kernel / "
+        f"CSR = {ms / library_ms:.3f}); bound {bound_ms:.4f} ms = {nbytes} "
+        f"bytes / 3.35 TB/s; bytes = real*({ea}m + 4 idx + {ex} x) + "
+        f"entries*1 mask + {prow} rows*4 dest + 4mJ")
+    return {"name": "ax_reduce_plan_x", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/ax_reduce_x.cu",
             "replaces": "src/repro/kernels/ax_reduce.py:103",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}
+            "library_ms": library_ms, "items": int(work.items.shape[0]),
+            "item_entries": work.item_entries, "ms_by_table": sweep}
 
 
 def _slab_bytes(slabs, m, J):
@@ -341,47 +417,51 @@ def check_dual_grad(obj, lam, gamma):
 
 
 def check_ax_reduce_gvals(obj, obj_x):
-    """K4 on every bucket of the index-only plan against its plain version,
+    """K4 on every bucket of the index-only plan (one bucket a call) and
+    on the whole plan (one call, the path's) against its plain version,
     fed the main path's own gvals buffer; at float32 its Ax equals K2's on
     the x buffer of the same sweep bit for bit."""
     import torch
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.ax_reduce import ax_reduce_bucket
-    plan, gv = obj._plan, obj._gbuf
+    from repro_torch.kernels.ax_reduce import ax_reduce_bucket, ax_reduce_plan
+    plan, gv, work = obj._plan, obj._gbuf, obj._work
     m, J = obj.lp.m, obj.lp.num_destinations
     out = torch.full((m, J), float("nan"), device=gv.device)
-    err = 0.0
     for b in plan.buckets:
         ax_reduce_bucket(gv, b.edge_idx, b.mask, b.dest_ids, out)
         want = ref.ax_reduce_ref(gv, b.edge_idx, b.mask).T
         got = out[:, b.dest_ids.long()]
         rel = float(((got - want).abs() / want.abs().clamp_min(1.0)).max())
-        err = max(err, float((got - want).abs().max()))
         require(rel <= 1e-5, f"ax_reduce w={b.width}: rel err {rel} > 1e-5")
     require(not torch.isnan(out).any(),
             "ax_reduce: a destination was not written")
-    require(torch.allclose(out, ref.ax_plan_ref(plan, gv), rtol=1e-5,
-                           atol=1e-5), "ax_reduce assembly")
-    require(torch.equal(out, ops.ax_aligned_x(obj_x._plan, obj._xbuf)),
+    full, err = _ax_plan_checks("ax_reduce_plan", plan, work, gv, m,
+                                ax_reduce_plan, ref.ax_plan_ref,
+                                {"gvals": gv})
+    require(torch.equal(full, out),
+            "ax_reduce: the plan and the per-bucket calls differ in bits")
+    require(torch.equal(full, ops.ax_aligned_x(obj_x._plan, obj._xbuf,
+                                               work=obj_x._work)),
             "ax_reduce (gvals) and ax_reduce_x (x-carry) Ax differ in bits")
-    log(f"ax_reduce_bucket  f32 all {len(plan.buckets)} buckets (widths "
-        f"{plan.buckets[0].width}..{plan.buckets[-1].width}): max|d ax| "
-        f"{err:.3e} (rtol 1e-5 of max(1, |ax|)); equal to ax_reduce_x's Ax "
-        f"bit for bit")
+    log(f"ax_reduce_plan  f32, all {len(plan.buckets)} buckets (widths "
+        f"{plan.buckets[0].width}..{plan.buckets[-1].width}) one by one and "
+        f"as one plan: max|d ax| {err:.3e} (rtol 1e-5 of max(1, |ax|)); the "
+        f"two, two runs and the kernel-order plain version bit for bit; "
+        f"equal to "
+        f"ax_reduce_plan_x's Ax bit for bit; {_ax_items_line(work, plan)}")
     gb = gv.to(torch.bfloat16)
-    for b in (plan.buckets[0], plan.buckets[-1]):
-        ob = torch.zeros((m, J), device=gv.device)
-        ax_reduce_bucket(gb, b.edge_idx, b.mask, b.dest_ids, ob)
-        want = ref.ax_reduce_ref(gb, b.edge_idx, b.mask).T
-        got = ob[:, b.dest_ids.long()]
-        rel = float(((got - want).abs() / want.abs().clamp_min(1.0)).max())
-        require(rel <= 5e-2, f"ax_reduce bf16 w={b.width}: {rel}")
-        log(f"ax_reduce_bucket  bf16 w={b.width}: rel err {rel:.3e} "
-            f"(tol 5e-2)")
-    del gb
+    ob = torch.full((m, J), float("nan"), device=gv.device)
+    ax_reduce_plan(gb, plan, ob, work)
+    want = ref.ax_plan_ref(plan, gb)
+    rel = float(((ob - want).abs() / want.abs().clamp_min(1.0)).max())
+    require(rel <= 5e-2, f"ax_reduce_plan bf16: {rel}")
+    log(f"ax_reduce_plan  bf16 whole plan: rel err {rel:.3e} (tol 5e-2)")
+    del gb, ob
 
-    ms = cuda_ms(lambda: ops.ax_aligned(plan, gv))
+    ms = cuda_ms(lambda: ops.ax_aligned(plan, gv, work=work))
     plain_ms = cuda_ms(lambda: ref.ax_plan_ref(plan, gv), reps=5, warmup=1)
+    sweep = _table_sweep("ax_reduce_plan", plan, full, ms,
+                         lambda w: ops.ax_aligned(plan, gv, work=w))
     # the library yardstick: one cuSPARSE CSR product of the 0/1
     # destination-incidence matrix (J x E) with the gvals (E x m)
     rows, cols = [], []
@@ -396,7 +476,7 @@ def check_ax_reduce_gvals(obj, obj_x):
     csr = coo.coalesce().to_sparse_csr()
     del coo, rows, cols, idx
     lib = (csr @ gv).T
-    require(torch.allclose(lib, out, rtol=1e-4, atol=1e-4), "CSR yardstick")
+    require(torch.allclose(lib, full, rtol=1e-4, atol=1e-4), "CSR yardstick")
     library_ms = cuda_ms(lambda: csr @ gv)
     del csr
     # bytes: the m gvals and edge_idx at the real entries (the kernel skips
@@ -408,17 +488,19 @@ def check_ax_reduce_gvals(obj, obj_x):
     eg = gv.element_size()
     nbytes = real * (eg * m + 4) + entries + prow * 4 + m * J * 4
     bound_ms, bound_by = bound(nbytes, m * real)
-    log(f"ax_reduce_bucket  one Ax ({len(plan.buckets)} buckets, {real} real "
-        f"entries of {entries}): {ms:.4f} ms; plain {plain_ms:.4f} ms; CSR "
-        f"library {library_ms:.4f} ms; bound {bound_ms:.4f} ms = {nbytes} "
-        f"bytes / 3.35 TB/s; bytes = real*({eg}m gvals + 4 idx) + entries*1 "
-        f"mask + {prow} rows*4 dest + 4mJ")
-    return {"name": "ax_reduce_bucket", "route": "cuda",
+    log(f"ax_reduce_plan  one Ax ({len(plan.buckets)} buckets, {real} real "
+        f"entries of {entries}; 1 call, 2 CUDA launches): {ms:.4f} ms; plain "
+        f"{plain_ms:.4f} ms; CSR library {library_ms:.4f} ms (kernel / CSR = "
+        f"{ms / library_ms:.3f}); bound {bound_ms:.4f} ms = {nbytes} bytes / "
+        f"3.35 TB/s; bytes = real*({eg}m gvals + 4 idx) + entries*1 mask + "
+        f"{prow} rows*4 dest + 4mJ")
+    return {"name": "ax_reduce_plan", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/ax_reduce.cu",
             "replaces": "src/repro/kernels/ax_reduce.py:52",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}
+            "library_ms": library_ms, "items": int(work.items.shape[0]),
+            "item_entries": work.item_entries, "ms_by_table": sweep}
 
 
 def slab_u(a_vals, c_vals, dest_idx, lam, gamma):
@@ -520,8 +602,8 @@ def calculate_bits_equal(a, b):
 def wide_rows():
     """A dense-eligibility instance (a 2,048-wide slab) through the CLI
     entry point, and K1, K3, K5 against their plain versions on synthetic
-    slabs 2,048 and 8,192 wide.  Returns K1's time on the instance's
-    2,048-wide slab."""
+    slabs 2,048 and 8,192 wide.  Returns K1's time, its plain version's
+    and its bound on the instance's 2,048-wide slab."""
     import numpy as np
     import torch
     from repro_torch.kernels import ref
@@ -541,9 +623,19 @@ def wide_rows():
     require(rel <= 1e-4, f"wide instance dual off by {rel:.2e}")
     wide = max(out.objective.lp.slabs, key=lambda s: s.width)
     lam, g = out.lam, torch.full((), out.gamma, device=out.lam.device)
-    ms_inst = cuda_ms(lambda: dual_x_slab(*wide[:6], lam, g))
+    iters = out.objective.proj_iters
+    ms_inst = cuda_ms(lambda: dual_x_slab(*wide[:6], lam, g, iters=iters))
+    plain_inst = cuda_ms(lambda: ref.dual_x_ref(*wide[:6], lam, g, iters),
+                         reps=5, warmup=1)
+    m, J = lam.shape
+    nbytes, real, padded, rows, ea, ec, eu = _slab_bytes([wide], m, J)
+    nbytes += padded * ec                     # x written
+    ops = real * (2 * m + 12 + 4 * iters)
+    bound_inst, bound_by = bound(nbytes, ops)
     log(f"dual_x_slab on the instance's {wide.n} x {wide.width} slab: "
-        f"{ms_inst:.4f} ms")
+        f"{ms_inst:.4f} ms; plain {plain_inst:.4f} ms; bound "
+        f"{bound_inst:.4f} ms ({bound_by}) = max({nbytes} bytes / 3.35 TB/s, "
+        f"{ops} ops / 67 TFLOP/s), K1's formula")
     del out
     args = solve.build_parser().parse_args(
         WIDE_ARGS + ["--adaptive-continuation", "--tol-rel-dual", "1e-6",
@@ -597,7 +689,7 @@ def wide_rows():
             f"{ms1:.4f} ms")
         require(max(e1, e3, e5) <= 1e-4 and es <= 1e-5 and same,
                 f"wide kernels at w={w}")
-    return ms_inst
+    return ms_inst, plain_inst, bound_inst
 
 
 def repeatability(obj, gamma):
@@ -761,15 +853,14 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
         return 1
     from repro_torch.kernels import _build
-    from repro_torch.kernels.ax_reduce import (ax_reduce_bucket,
-                                               ax_reduce_bucket_x)
+    from repro_torch.kernels.ax_reduce import ax_reduce_plan, ax_reduce_plan_x
     from repro_torch.kernels.dual_grad import dual_grad_slab, dual_x_slab
     from repro_torch.kernels.proj import proj_boxcut
     from repro_torch.launch import solve
     WRAPPERS.update(dual_x_slab=dual_x_slab,
-                    ax_reduce_bucket_x=ax_reduce_bucket_x,
+                    ax_reduce_plan_x=ax_reduce_plan_x,
                     dual_grad_slab=dual_grad_slab,
-                    ax_reduce_bucket=ax_reduce_bucket,
+                    ax_reduce_plan=ax_reduce_plan,
                     proj_boxcut=proj_boxcut)
     t_start = time.perf_counter()
 
@@ -792,23 +883,23 @@ def main() -> int:
     args = solve.build_parser().parse_args(MAIN_ARGS)
     inst = solve.generate_instance(args, log=lambda msg: log(f"  {msg}"))
     out, launches, per_eval = drive(
-        args, inst, ("dual_x_slab", "ax_reduce_bucket_x"), "main path")
+        args, inst, ("dual_x_slab", "ax_reduce_plan_x"), "main path")
     require(out.result["certificate_valid"] is True, "certificate not valid")
     lam, gamma = out.lam, out.gamma
     records = {}
     counts = {"dual_x_slab": (launches, per_eval),
-              "ax_reduce_bucket_x": (launches, per_eval)}
+              "ax_reduce_plan_x": (launches, per_eval)}
 
     # 4. K1, K2 against their plain versions, at the main path's shapes
     records["dual_x_slab"] = check_dual_x(out.objective, lam, gamma)
-    records["ax_reduce_bucket_x"] = check_ax_reduce(out.objective)
+    records["ax_reduce_plan_x"] = check_ax_reduce(out.objective)
     repeatability(out.objective, gamma)
 
     # 5. the gvals path on the same instance
     args_g = solve.build_parser().parse_args(
         MAIN_ARGS + ["--ax-mode", "aligned_gvals"])
     out_g, launches_g, per_eval_g = drive(
-        args_g, inst, ("dual_grad_slab", "ax_reduce_bucket"),
+        args_g, inst, ("dual_grad_slab", "ax_reduce_plan"),
         "main path, aligned_gvals")
     require(out_g.result["certificate_valid"] is True,
             "aligned_gvals certificate not valid")
@@ -820,10 +911,10 @@ def main() -> int:
     log("aligned_gvals: one evaluation at the main path's final lambda equals "
         "aligned's bit for bit (g, grad, aux)")
     counts["dual_grad_slab"] = (launches_g, per_eval_g)
-    counts["ax_reduce_bucket"] = (launches_g, per_eval_g)
+    counts["ax_reduce_plan"] = (launches_g, per_eval_g)
     records["dual_grad_slab"] = check_dual_grad(out_g.objective, lam, gamma)
-    records["ax_reduce_bucket"] = check_ax_reduce_gvals(out_g.objective,
-                                                        out.objective)
+    records["ax_reduce_plan"] = check_ax_reduce_gvals(out_g.objective,
+                                                      out.objective)
     del out_g
     torch.cuda.empty_cache()
     xs, us, n5 = proj_path(out.objective, lam, gamma)
@@ -841,8 +932,9 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 6. rows wider than 1,024
-    wide_ms = wide_rows()
-    records["dual_x_slab"]["wide_2048_ms"] = wide_ms
+    rec = records["dual_x_slab"]
+    (rec["wide_2048_ms"], rec["wide_2048_plain_ms"],
+     rec["wide_2048_bound_ms"]) = wide_rows()
 
     # 7. parity with the reference's recorded run, every mode
     parity()

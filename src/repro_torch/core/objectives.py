@@ -9,7 +9,9 @@ selects both (DESIGN.md §3):
   "aligned"        the x-carry sweep (`slab_xcarry`, kernel `dual_x`),
                    each slab writing its x into one flat (E,) buffer, then
                    the value-carrying reduction through the plan's static
-                   `a_dm` copy (`ops.ax_aligned_x`, kernel `ax_reduce_x`);
+                   `a_dm` copy (`ops.ax_aligned_x`, kernel `ax_reduce_x`,
+                   one kernel call an evaluation over the plan's work
+                   table);
   "aligned_gvals"  the gvals sweep (`slab_xgvals`, kernel `dual_grad`),
                    each slab writing gvals = a ⊙ x into one flat (E, m)
                    buffer, then the index-only plan's gather row-sum
@@ -161,6 +163,11 @@ class MatchingObjective:
                     "plan; rebuild with build_ax_plan(lp, carry_values=True) "
                     "or use ax_mode='aligned_gvals'")
         self._plan = ax_plan
+        # the Ax kernels' work table, built once a plan (on the card only:
+        # the CPU's plain versions sum bucket by bucket)
+        self._work = (kops.plan_work(ax_plan)
+                      if ax_plan is not None and device.type == "cuda"
+                      else None)
         self._offsets = []
         off = 0
         for s in lp.slabs:
@@ -204,10 +211,11 @@ class MatchingObjective:
         J = self.lp.num_destinations
         if self.ax_mode == "aligned":
             return kops.ax_aligned_x(self._plan, self._xbuf,
-                                     out_dtype=torch.float32)
+                                     out_dtype=torch.float32,
+                                     work=self._work)
         if self.ax_mode == "aligned_gvals":
             return kops.ax_aligned(self._plan, self._gbuf,
-                                   out_dtype=torch.float32)
+                                   out_dtype=torch.float32, work=self._work)
         if self.ax_mode == "sorted":
             data = self._gbuf.index_select(0, self._perm).float()
             return torch.segment_reduce(data, "sum", lengths=self._lengths,

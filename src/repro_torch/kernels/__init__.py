@@ -3,13 +3,14 @@
   csrc/dual_x.cu       K1 x*(λ) of a slab + scalars, and K3 the same plus
                        gvals = a ⊙ x  (replace dual_grad.py's
                        `_dual_x_kernel` and `_dual_grad_kernel`)
-  csrc/ax_reduce_x.cu  K2 value-carrying Ax of a plan bucket  (replaces
-                       ax_reduce.py's `_ax_reduce_x_kernel`)
-  csrc/ax_reduce.cu    K4 gvals-consuming Ax of a plan bucket  (replaces
-                       ax_reduce.py's `_ax_reduce_kernel`)
+  csrc/ax_reduce_x.cu  K2 value-carrying Ax of a whole plan, one call
+                       (replaces ax_reduce.py's `_ax_reduce_x_kernel`)
+  csrc/ax_reduce.cu    K4 gvals-consuming Ax of a whole plan, one call
+                       (replaces ax_reduce.py's `_ax_reduce_kernel`)
   csrc/proj.cu         K5 batched box-cut projection  (replaces proj.py's
                        `_proj_kernel`)
-  csrc/ax_rows.cuh     the row sums K2 and K4 share
+  csrc/ax_rows.cuh     the row sums K2 and K4 share, over the plan's work
+                       table (ax_reduce.py `plan_work`)
   csrc/common.cuh      shared device helpers (box-cut bisection over a
                        warp's registers or a block's row, shuffles)
   _build.py            nvcc -> shared library -> ctypes, at first use

@@ -26,6 +26,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _vp = ctypes.c_void_p
 _i = ctypes.c_int
 _ll = ctypes.c_longlong
+_vpp = ctypes.POINTER(ctypes.c_void_p)   # an array of pointers, one a bucket
+_ip = ctypes.POINTER(ctypes.c_int)
+# the Ax kernels' work table, output, scratch, J and stream
+_TABLE = [_vp, _vp, _i, _vp, _i, _vp, _vp, _i, _vp]
 
 # argtypes/restype of every C entry point, per library
 SIGNATURES = {
@@ -37,13 +41,15 @@ SIGNATURES = {
     },
     "ax_reduce_x": {   # K2
         "ax_reduce_x_max_families": ([], _i),
-        "ax_reduce_x_scratch": ([_i, _i, _i], _ll),
-        "ax_reduce_x_launch": ([_i] + [_vp] * 7 + [_i, _i, _i, _i, _vp], _i),
+        "ax_reduce_x_max_buckets": ([], _i),
+        "ax_reduce_x_launch": ([_i, _i, _vp, _i, _vpp, _vpp, _vpp, _ip]
+                               + _TABLE, _i),
     },
     "ax_reduce": {   # K4
         "ax_reduce_max_families": ([], _i),
-        "ax_reduce_scratch": ([_i, _i, _i], _ll),
-        "ax_reduce_launch": ([_i] + [_vp] * 6 + [_i, _i, _i, _i, _vp], _i),
+        "ax_reduce_max_buckets": ([], _i),
+        "ax_reduce_launch": ([_i, _i, _vp, _i, _vpp, _vpp, _ip] + _TABLE,
+                             _i),
     },
     "proj": {   # K5
         "proj_scratch": ([_ll, _i], _ll),

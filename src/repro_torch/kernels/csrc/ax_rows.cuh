@@ -1,4 +1,4 @@
-// The gather row-sum of one AxPlan bucket, shared by the two Ax kernels:
+// The gather row-sum of a whole AxPlan, shared by the two Ax kernels:
 //
 //   ax[k, dest_ids[r]] = Σ_q mask[r,q] · term(r, q, k),   summed in float32,
 //
@@ -9,26 +9,42 @@
 // At float32 K4's gvals = a ⊙ x are the very products K2 forms, and both
 // sum them in this one order, so the two give the same Ax bit for bit.
 //
-// What bounds it on an H100: device-memory bytes, and latency on the
-// widest rows.  Each plan entry streams edge_idx and mask once (and K2's
-// a_dm) plus a gather of x or of m gvals, which is random but partly
-// served from L2.  A handful of operations an entry is far below the
-// memory line.  Row widths span five orders of magnitude (4 to 262,144 on
-// the main path), so one warp per row would leave the widest row to a
-// single warp's dependent loads while the card idles.
+// What bounds it on an H100: device-memory latency and bytes.  Each real
+// entry streams edge_idx and mask (and K2's a_dm) once and gathers x (or m
+// gvals) at a random index: a 32-byte sector for 4 useful bytes.  x is
+// 269 MB on the main path, five times the 50 MB L2, so gathers in plan
+// order mostly miss it.  Row widths span five orders of magnitude (4 to
+// 262,144 on the main path) and a row's padding can be a third of it.
 //
-// What the design does about it: the threads a row gets follow the
-// bucket's width.  Rows up to 1,024 wide get one warp (lanes stride over
-// the row, a coalesced stream of the plan, warp butterfly sum).  Wider
-// rows are cut into chunks of 8,192 entries, each chunk a block of 256
-// threads (32 entries a thread) reduced in shared memory in a fixed
-// order.  A row of one chunk is stored directly; a row of several writes
-// one partial a chunk to a scratch vector and a second pass sums them in
-// chunk order.  Each destination owns exactly one plan row, so the
-// result goes straight to ax[k, dest_ids[r]] of the (m, J) output: the
-// reference's `inv_perm` gather is gone.  No atomics: the result is
-// bit-identical run to run.
+// What the design does about it:
+//  - A work table over real entries, built once a plan on the host side of
+//    the wrapper (`kernels/ax_reduce.py::plan_work`): each row's extent
+//    (its last set mask entry plus one) is cut where its edge indices enter
+//    the next band of 2^22 edges, and into items of at most C entries.
+//    The items run band by band, so the gathers in flight at one time hit
+//    one band of x (16 MB), which L2 holds: each sector of x comes from
+//    device memory about once an Ax.  Padding past the extent is never
+//    read, and every item is one warp's work, so all buckets of the plan
+//    run in one launch that the card balances by real length.
+//  - Many gathers in flight: a warp takes its item in tiles of 256
+//    entries, 8 a lane.  A lane loads its 8 indices, mask bytes (and K2's
+//    a_dm) with 16-byte (mask: 4-byte) streaming loads, evicted first so
+//    that L2 keeps x, issues its up to 8 read-only gathers, and only then
+//    adds.  A masked entry issues no gather and adds nothing.  The 4-entry
+//    groups that reach past the item's end, and every group of a bucket
+//    whose rows are not 16-byte aligned (or of an item that starts off a
+//    multiple of 4), take the same entries one by one.
+//  - A fixed order, no atomics: lane l sums entries q + s·128 + 4l + j
+//    (s = 0, 1; j = 0..3) of each tile from the item's start, in that
+//    order, tile after tile, then the warp's butterfly.  A row of one item
+//    stores straight to ax[k, dest_ids[r]]; a row of several writes one
+//    partial an item, and a second launch sums the partials in entry
+//    order.  The result is bit-identical from run to run, independent of
+//    which load path a group took, and equal to `ref.ax_items_ref`.
 #pragma once
+
+#include <string.h>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -36,125 +52,221 @@ namespace repro_torch {
 namespace {
 
 constexpr int kMaxFamilies = 8;   // m <= 8 (the reference's m is 1-4)
-constexpr int kWarpRowsMax = 1024;
-constexpr int kBlockThreads = 256;
-constexpr int kChunk = 8192;
+constexpr int kMaxBuckets = 32;   // one bucket per power-of-two width
+constexpr int kItemThreads = 256; // 8 warps a block, one item a warp
+constexpr int kTile = 256;        // entries a warp takes per step, 8 a lane
 
-// One warp a row: rows of width <= 1024.
-template <typename Src>
-__global__ void __launch_bounds__(256)
-ax_rows_warp_kernel(Src src, const uint8_t* __restrict__ mask,
-                    const int32_t* __restrict__ dest_ids,
-                    float* __restrict__ out, int r, int w, int m, int J) {
-  const int lane = threadIdx.x & 31;
-  const long long row = (long long)blockIdx.x * (blockDim.x >> 5) +
-                        (threadIdx.x >> 5);
-  if (row >= r) return;  // whole warps leave together
-  float acc[kMaxFamilies];
+// The plan's buckets, passed by value (a __grid_constant__ kernel
+// parameter, read from the constant bank at the item's bucket index):
+// their tensors are not copied.
+struct Buckets {
+  const int32_t* idx[kMaxBuckets];   // (r, w) edge_idx
+  const uint8_t* mask[kMaxBuckets];  // (r, w) mask
+  const void* vals[kMaxBuckets];     // K2: (r, w, m) a_dm; K4: unused
+  int width[kMaxBuckets];
+  unsigned vec;                      // bit b: bucket b takes vector loads
+};
+
+// One load of a streamed (read once, evict first: `__ldcs`) or gathered
+// (read-only path: `__ldg`) value.
+template <bool kStream, typename T>
+__device__ __forceinline__ T ld(const T* p) {
+  if constexpr (kStream)
+    return __ldcs(p);
+  else
+    return __ldg(p);
+}
+
+// N values of T from p by vector loads, as wide as the N·sizeof(T) bytes
+// allow (up to 16); p must be aligned to that width.
+template <bool kStream, typename T, int N>
+__device__ __forceinline__ void ld_vec(const T* p, T (&v)[N]) {
+  constexpr int kBytes = N * (int)sizeof(T);
+  constexpr int kVec = kBytes % 16 == 0 ? 16
+                       : kBytes % 8 == 0 ? 8
+                       : kBytes % 4 == 0 ? 4 : 2;
+  const char* s = reinterpret_cast<const char*>(p);
+  char* d = reinterpret_cast<char*>(v);
 #pragma unroll
-  for (int k = 0; k < kMaxFamilies; ++k) acc[k] = 0.0f;
-  for (int q = lane; q < w; q += 32) {
-    const size_t e = (size_t)row * (size_t)w + q;
-    if (mask[e] != 0) src.add(e, m, acc);
-  }
-#pragma unroll
-  for (int k = 0; k < kMaxFamilies; ++k) {
-    if (k < m) {
-      const float v = group_sum<32>(acc[k]);
-      if (lane == 0) out[(size_t)k * J + dest_ids[row]] = v;
+  for (int i = 0; i < kBytes / kVec; ++i) {
+    if constexpr (kVec == 16) {
+      const uint4 u = ld<kStream>(reinterpret_cast<const uint4*>(s) + i);
+      memcpy(d + 16 * i, &u, 16);
+    } else if constexpr (kVec == 8) {
+      const uint2 u = ld<kStream>(reinterpret_cast<const uint2*>(s) + i);
+      memcpy(d + 8 * i, &u, 8);
+    } else if constexpr (kVec == 4) {
+      const unsigned u = ld<kStream>(reinterpret_cast<const unsigned*>(s) + i);
+      memcpy(d + 4 * i, &u, 4);
+    } else {
+      const unsigned short u =
+          ld<kStream>(reinterpret_cast<const unsigned short*>(s) + i);
+      memcpy(d + 2 * i, &u, 2);
     }
   }
 }
 
-// One block a chunk of kChunk entries of one row: rows wider than 1024.
-// With one chunk a row the block stores the result; otherwise it writes its
-// partial to partials[(row * splits + chunk) * m + k].
-template <typename Src>
-__global__ void __launch_bounds__(kBlockThreads)
-ax_rows_block_kernel(Src src, const uint8_t* __restrict__ mask,
-                     const int32_t* __restrict__ dest_ids,
-                     float* __restrict__ out, float* __restrict__ partials,
-                     int w, int m, int J, int splits) {
-  const long long row = blockIdx.x / splits;
-  const int chunk = blockIdx.x % splits;
-  const int q0 = chunk * kChunk;
-  const int q1 = min(w, q0 + kChunk);
-  float acc[kMaxFamilies];
+// One warp an item: the sum of entries [q0, q1) of one plan row.  items[i]
+// = (bucket, row, q0, q1); item_dest[i] = j >= 0 stores to out[k, j], and
+// -1 - p writes the p-th partial.
+template <typename Src, int M>
+__global__ void __launch_bounds__(kItemThreads)
+ax_items_kernel(Src src, const __grid_constant__ Buckets bk,
+                const int4* __restrict__ items,
+                const int32_t* __restrict__ item_dest, int n_items,
+                float* __restrict__ out, float* __restrict__ partials,
+                int J) {
+  using Entry = typename Src::Entry;
+  const int lane = threadIdx.x & 31;
+  const int item = blockIdx.x * (kItemThreads / 32) + (threadIdx.x >> 5);
+  if (item >= n_items) return;  // whole warps leave together
+  const int4 it = __ldg(items + item);
+  const int b = it.x;
+  const size_t row = (size_t)it.y * (size_t)bk.width[b];
+  const int32_t* idx = bk.idx[b] + row;
+  const uint8_t* mk = bk.mask[b] + row;
+  const void* vals = bk.vals[b];
+  const int q1 = it.w;
+  int q = it.z;
+  float acc[M];
 #pragma unroll
-  for (int k = 0; k < kMaxFamilies; ++k) acc[k] = 0.0f;
-  for (int q = q0 + threadIdx.x; q < q1; q += kBlockThreads) {
-    const size_t e = (size_t)row * (size_t)w + q;
-    if (mask[e] != 0) src.add(e, m, acc);
+  for (int k = 0; k < M; ++k) acc[k] = 0.0f;
+
+  // 4-entry groups wholly inside the item take vector loads when the
+  // bucket and the item's start allow them; the rest go one by one.
+  const bool vec = ((bk.vec >> b) & 1u) && (q & 3) == 0;
+  for (; q < q1; q += kTile) {
+    Entry en[8];
+    int32_t ix[8];
+    bool on[8];
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      const int q4 = q + s * 128 + 4 * lane;
+      if (vec && q4 + 4 <= q1) {
+        const int4 i4 = __ldcs(reinterpret_cast<const int4*>(idx + q4));
+        const unsigned m4 = __ldcs(reinterpret_cast<const unsigned*>(mk + q4));
+        ix[4 * s + 0] = i4.x;
+        ix[4 * s + 1] = i4.y;
+        ix[4 * s + 2] = i4.z;
+        ix[4 * s + 3] = i4.w;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          on[4 * s + j] = ((m4 >> (8 * j)) & 0xffu) != 0;
+        src.stream4(vals, row + q4, en + 4 * s);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int qe = q4 + j;
+          on[4 * s + j] = qe < q1 && __ldcs(mk + qe) != 0;
+          ix[4 * s + j] = 0;
+          if (on[4 * s + j]) {
+            ix[4 * s + j] = __ldcs(idx + qe);
+            src.stream1(vals, row + qe, en[4 * s + j]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      if (on[j]) src.gather(ix[j], en[j]);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      if (on[j]) src.add(en[j], acc);
   }
 
-  __shared__ float sh[kMaxFamilies][kBlockThreads / 32];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+  const int dst = __ldg(item_dest + item);
 #pragma unroll
-  for (int k = 0; k < kMaxFamilies; ++k) {
-    if (k < m) {
-      const float v = group_sum<32>(acc[k]);
-      if (lane == 0) sh[k][warp] = v;
+  for (int k = 0; k < M; ++k) {
+    const float v = group_sum<32>(acc[k]);
+    if (lane == 0) {
+      if (dst >= 0)
+        out[(size_t)k * J + dst] = v;
+      else
+        partials[(size_t)(-1 - dst) * M + k] = v;
     }
-  }
-  __syncthreads();
-  if ((int)threadIdx.x < m) {
-    const int k = threadIdx.x;
-    float v = 0.0f;
-    for (int i = 0; i < kBlockThreads / 32; ++i) v += sh[k][i];
-    if (splits == 1)
-      out[(size_t)k * J + dest_ids[row]] = v;
-    else
-      partials[((size_t)row * splits + chunk) * m + k] = v;
   }
 }
 
-// Second pass for multi-chunk rows: one thread a (row, family).
-__global__ void sum_chunks_kernel(const float* __restrict__ partials,
-                                  const int32_t* __restrict__ dest_ids,
-                                  float* __restrict__ out, int r, int m,
-                                  int J, int splits) {
+// Second pass: one thread a (row of several items, family).  multi[i] =
+// (j, p0, p1): out[k, j] = Σ_{p0 <= p < p1} partials[p, k], in item order.
+__global__ void sum_items_kernel(const int32_t* __restrict__ multi,
+                                 int n_multi, int m,
+                                 const float* __restrict__ partials,
+                                 float* __restrict__ out, int J) {
   const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= (long long)r * m) return;
-  const long long row = t / m;
+  if (t >= (long long)n_multi * m) return;
+  const int i = (int)(t / m);
   const int k = (int)(t % m);
+  const int j = __ldg(multi + 3 * i);
+  const int p0 = __ldg(multi + 3 * i + 1);
+  const int p1 = __ldg(multi + 3 * i + 2);
   float v = 0.0f;
-  for (int c = 0; c < splits; ++c)
-    v += partials[((size_t)row * splits + c) * m + k];
-  out[(size_t)k * J + dest_ids[row]] = v;
+  for (int p = p0; p < p1; ++p) v += __ldg(partials + (size_t)p * m + k);
+  out[(size_t)k * J + j] = v;
 }
 
-int splits_for(int w) { return (w + kChunk - 1) / kChunk; }
-
-// Length of the float scratch vector a bucket needs (0: none).
-long long rows_scratch(int r, int w, int m) {
-  if (w <= kWarpRowsMax || splits_for(w) == 1) return 0;
-  return (long long)r * splits_for(w) * m;
+inline bool aligned(const void* p, uintptr_t bytes) {
+  return ((uintptr_t)p % bytes) == 0;
 }
 
-// Launches the bucket reduction on `st`; -1 for a shape it does not take,
-// else cudaGetLastError().
-template <typename Src>
-int launch_rows(Src src, const void* mask, const void* dest_ids, void* out,
-                void* scratch, int r, int w, int m, int J, cudaStream_t st) {
-  if (r <= 0 || w <= 0 || m <= 0 || m > kMaxFamilies) return -1;
-  if ((long long)r * splits_for(w) > 0x7fffffffLL) return -1;
-  const uint8_t* mk = (const uint8_t*)mask;
-  const int32_t* dest = (const int32_t*)dest_ids;
-  if (w <= kWarpRowsMax) {
-    const int rows_per_block = 256 / 32;
-    const int nb = (r + rows_per_block - 1) / rows_per_block;
-    ax_rows_warp_kernel<Src><<<nb, 256, 0, st>>>(src, mk, dest, (float*)out,
-                                                 r, w, m, J);
-    return (int)cudaGetLastError();
+// Fills `bk` from the wrapper's per-bucket arrays (`vals` may be null).  A
+// bucket takes vector loads when its rows are a multiple of 4 entries and
+// its tensors are 16-byte aligned (the mask 4-byte).  -1 for too many
+// buckets.
+inline int fill_buckets(Buckets& bk, int nb, const void* const* idx,
+                        const void* const* mask, const void* const* vals,
+                        const int* widths) {
+  if (nb < 0 || nb > kMaxBuckets) return -1;
+  memset(&bk, 0, sizeof(bk));
+  for (int b = 0; b < nb; ++b) {
+    bk.idx[b] = (const int32_t*)idx[b];
+    bk.mask[b] = (const uint8_t*)mask[b];
+    bk.vals[b] = vals ? vals[b] : nullptr;
+    bk.width[b] = widths[b];
+    const bool vec = widths[b] % 4 == 0 && aligned(idx[b], 16) &&
+                     aligned(mask[b], 4) && (!vals || aligned(vals[b], 16));
+    if (vec) bk.vec |= 1u << b;
   }
-  const int splits = splits_for(w);
-  ax_rows_block_kernel<Src><<<r * splits, kBlockThreads, 0, st>>>(
-      src, mk, dest, (float*)out, (float*)scratch, w, m, J, splits);
-  if (splits > 1) {
-    const long long work = (long long)r * m;
-    sum_chunks_kernel<<<(int)((work + 255) / 256), 256, 0, st>>>(
-        (const float*)scratch, dest, (float*)out, r, m, J, splits);
+  return 0;
+}
+
+// Calls f(std::integral_constant<int, m>) for m in 1..kMaxFamilies; -1
+// otherwise.
+template <typename F>
+int with_families(int m, F&& f) {
+  switch (m) {
+    case 1: return f(std::integral_constant<int, 1>{});
+    case 2: return f(std::integral_constant<int, 2>{});
+    case 3: return f(std::integral_constant<int, 3>{});
+    case 4: return f(std::integral_constant<int, 4>{});
+    case 5: return f(std::integral_constant<int, 5>{});
+    case 6: return f(std::integral_constant<int, 6>{});
+    case 7: return f(std::integral_constant<int, 7>{});
+    case 8: return f(std::integral_constant<int, 8>{});
+  }
+  return -1;
+}
+
+// Launches one Ax on `st`: the item launch, then the second pass when a
+// row has several items.  Returns cudaGetLastError().
+template <int M, typename Src>
+int launch_items(Src src, const Buckets& bk, const void* items,
+                 const void* item_dest, int n_items, const void* multi,
+                 int n_multi, void* out, void* partials, int J,
+                 cudaStream_t st) {
+  if (n_items < 0 || n_multi < 0) return -1;
+  if (n_items > 0) {
+    const int per_block = kItemThreads / 32;
+    ax_items_kernel<Src, M><<<(n_items + per_block - 1) / per_block,
+                              kItemThreads, 0, st>>>(
+        src, bk, (const int4*)items, (const int32_t*)item_dest, n_items,
+        (float*)out, (float*)partials, J);
+  }
+  if (n_multi > 0) {
+    const long long work = (long long)n_multi * M;
+    sum_items_kernel<<<(int)((work + 255) / 256), 256, 0, st>>>(
+        (const int32_t*)multi, n_multi, M, (const float*)partials,
+        (float*)out, J);
   }
   return (int)cudaGetLastError();
 }

@@ -8,9 +8,10 @@
                   projection-kind dispatch of the reference's `dual_x_full`
   ax_reduce_bucket  (r, m) gvals gather row-sum of one plan bucket (K4)
   ax_aligned      (m, J) Ax from an index-only plan and the flat (E, m)
-                  gvals (K4 per bucket)
+                  gvals (K4, one call a plan)
   ax_aligned_x    (m, J) Ax from a value-carrying plan and the flat (E,) x
-                  (K2 per bucket)
+                  (K2, one call a plan)
+  plan_work       the work table both Ax kernels run on, built once a plan
 
 Each launches its hand-written kernel for tensors on the card and runs the
 plain version for tensors on the CPU (see `dual_grad.py`, `ax_reduce.py`,
@@ -26,6 +27,7 @@ from ..core.types import AxPlan, Slab
 from . import ax_reduce as _ax_reduce
 from . import dual_grad as _dual_grad
 from . import proj as _proj
+from .ax_reduce import AxWork, plan_work  # noqa: F401
 from .dual_grad import DEFAULT_ITERS
 
 
@@ -95,35 +97,40 @@ def ax_reduce_bucket(gvals, edge_idx, mask):
     return _ax_reduce.ax_reduce_bucket(gvals, edge_idx, mask, rows, out).T
 
 
-def ax_aligned(plan: AxPlan, gvals: torch.Tensor,
-               out_dtype=None) -> torch.Tensor:
+def ax_aligned(plan: AxPlan, gvals: torch.Tensor, out_dtype=None,
+               work: Optional[AxWork] = None) -> torch.Tensor:
     """Scatter-free (m, J) Ax from the (E, m) gvals (edge order = slab
     concatenation order, the plan's edge space) over an index-only plan.
 
-    Every bucket's kernel writes its destinations' columns of one (m, J)
-    float32 buffer; the plan covers each destination exactly once, so the
-    buffer needs no initialisation and no `inv_perm` gather.
+    On the card one kernel call takes every bucket (the items, then the
+    second pass), driven by the plan's work table `work` (`plan_work(plan)`,
+    built here when not given).  The plan
+    covers each destination exactly once, so the buffer needs no
+    initialisation and no `inv_perm` gather.
     """
     out = torch.empty((gvals.shape[1], plan.num_destinations),
                       dtype=torch.float32, device=gvals.device)
-    for b in plan.buckets:
-        _ax_reduce.ax_reduce_bucket(gvals, b.edge_idx, b.mask, b.dest_ids,
-                                    out)
+    _ax_reduce.ax_reduce_plan(gvals, plan, out, work)
     return out.to(out_dtype or gvals.dtype)
 
 
-def ax_aligned_x(plan: AxPlan, x: torch.Tensor, out_dtype=None) -> torch.Tensor:
+def ax_aligned_x(plan: AxPlan, x: torch.Tensor, out_dtype=None,
+                 work: Optional[AxWork] = None) -> torch.Tensor:
     """Scatter-free (m, J) Ax from the (E,) x vector (edge order = slab
-    concatenation order, the plan's edge space).
+    concatenation order, the plan's edge space) over a value-carrying
+    plan.
 
-    Every bucket's kernel writes its destinations' columns of one (m, J)
-    float32 buffer; the plan covers each destination exactly once, so the
-    buffer needs no initialisation.
+    On the card one kernel call takes every bucket (the items, then the
+    second pass), driven by the plan's work table `work` (`plan_work(plan)`,
+    built here when not given).  The plan
+    covers each destination exactly once, so the buffer needs no
+    initialisation.
     """
+    if any(b.a_dm is None for b in plan.buckets):
+        raise ValueError("ax_aligned_x needs a value-carrying plan; rebuild "
+                         "with build_ax_plan(lp, carry_values=True)")
     m = plan.buckets[0].a_dm.shape[-1]
     out = torch.empty((m, plan.num_destinations), dtype=torch.float32,
                       device=x.device)
-    for b in plan.buckets:
-        _ax_reduce.ax_reduce_bucket_x(x, b.a_dm, b.edge_idx, b.mask,
-                                      b.dest_ids, out)
+    _ax_reduce.ax_reduce_plan_x(x, plan, out, work)
     return out.to(out_dtype or x.dtype)

@@ -107,3 +107,67 @@ def ax_plan_ref(plan, gvals):
     rows = torch.cat([ax_reduce_ref(gvals, b.edge_idx, b.mask)
                       for b in plan.buckets], dim=0)
     return rows[plan.inv_perm.long()].T
+
+
+def ax_items_ref(plan, work, x=None, gvals=None):
+    """(m, J) Ax of `plan` in the Ax kernels' own order of the sums, from x
+    (K2, value-carrying plan) or gvals (K4): equal to the kernels bit for
+    bit.
+
+    `work` is the plan's `ax_reduce.plan_work` table.  Each item's entries
+    [q0, q1) are summed as the kernel's warp sums them: in tiles of 256,
+    lane l takes entries q + s·128 + 4l + j (s = 0, 1; j = 0..3) in that
+    order, tile after tile, in float32; then the xor butterfly over the 32
+    lanes.  A row of several items sums its partials in item order.
+    """
+    items = work.items.long()
+    n, C = items.shape[0], work.item_entries
+    src = x if gvals is None else gvals
+    dev = src.device
+    m = plan.buckets[0].a_dm.shape[-1] if gvals is None else gvals.shape[1]
+    vals = torch.zeros((n, C, m), dtype=torch.float32, device=dev)
+    for bi, b in enumerate(plan.buckets):
+        sel = torch.nonzero(items[:, 0] == bi)[:, 0]
+        if sel.numel() == 0:
+            continue
+        rows, q0, q1 = items[sel, 1, None], items[sel, 2, None], items[sel, 3, None]
+        q = q0 + torch.arange(C, device=dev)[None, :]
+        inside = q < q1
+        q = torch.where(inside, q, torch.zeros_like(q))
+        idx = b.edge_idx[rows, q].long()
+        if gvals is None:
+            t = (b.a_dm[rows, q] * x[idx][..., None]).float()
+        else:
+            t = gvals[idx].float()
+        vals[sel] = torch.where((b.mask[rows, q] & inside)[..., None], t,
+                                torch.zeros_like(t))
+    # lane l's entries in its order: (tile, s, j)
+    lanes = vals.reshape(n, C // 256, 2, 32, 4, m).permute(0, 3, 1, 2, 4, 5)
+    lanes = lanes.reshape(n, 32, -1, m)
+    acc = torch.zeros((n, 32, m), dtype=torch.float32, device=dev)
+    for i in range(lanes.shape[2]):
+        acc = acc + lanes[:, :, i]
+    lane = torch.arange(32, device=dev)
+    for off in (16, 8, 4, 2, 1):
+        acc = acc + acc[:, lane ^ off]
+    sums = acc[:, 0]
+    out = torch.empty((m, plan.num_destinations), dtype=torch.float32,
+                      device=dev)
+    dest = work.item_dest.long()
+    direct = dest >= 0
+    out[:, dest[direct]] = sums[direct].T
+    partials = torch.empty((work.num_partials, m), dtype=torch.float32,
+                           device=dev)
+    partials[-1 - dest[~direct]] = sums[~direct]
+    multi = work.multi.long()
+    if multi.shape[0]:
+        j, p0, p1 = multi[:, 0], multi[:, 1], multi[:, 2]
+        tot = torch.zeros((multi.shape[0], m), dtype=torch.float32,
+                          device=dev)
+        for i in range(int((p1 - p0).max())):
+            p = p0 + i
+            live = (p < p1)[:, None]
+            tot = tot + torch.where(live, partials[torch.minimum(p, p1 - 1)],
+                                    torch.zeros_like(tot))
+        out[:, j] = tot.T
+    return out

@@ -17,8 +17,11 @@ from repro_torch.convert import lp_to_torch
 from repro_torch.core import (InstanceSpec, MatchingObjective, Maximizer,
                               SolveConfig, StoppingCriteria, generate,
                               precondition)
-from repro_torch.kernels import ref
-from repro_torch.kernels.ax_reduce import ax_reduce_bucket, ax_reduce_bucket_x
+from repro_torch.core.types import AxBucket, AxPlan
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.ax_reduce import (ax_reduce_bucket, ax_reduce_bucket_x,
+                                           ax_reduce_plan, ax_reduce_plan_x,
+                                           plan_work)
 from repro_torch.kernels.dual_grad import dual_grad_slab, dual_x_slab
 from repro_torch.kernels.proj import proj_boxcut
 
@@ -238,6 +241,130 @@ def test_ax_reduce_gvals_kernel_matches_plain_and_x_carry(dev, w, m, dtype):
     assert torch.equal(out[:, d_t.long()], out_x[:, d_t.long()])
 
 
+# A multi-bucket plan: widths 4 to 262,144; rows of extent 0 (width 4),
+# of one item and of many (the widest); bucket 64 with a non-prefix mask
+# (holes inside, padding after).
+PLAN_SHAPE = [(4, 300), (16, 200), (64, 100), (1024, 40), (4096, 20),
+              (32768, 4), (262144, 1)]
+
+
+def _plan_np(rng, m, E):
+    """(a_flat (E, m), x (E,), [(edge_idx, mask, dest_ids, a_dm)]) of a
+    random plan of PLAN_SHAPE, a_dm = a_flat[edge_idx] on real entries."""
+    a_flat = rng.lognormal(0, 0.5, (E, m))
+    x = rng.uniform(0, 1, E)
+    J = sum(r for _, r in PLAN_SHAPE)
+    dests = rng.permutation(J).astype(np.int32)
+    buckets, off = [], 0
+    for w, r in PLAN_SHAPE:
+        if w == 64:
+            end = rng.integers(w // 2 + 1, w, size=r)
+            mask = ((rng.random((r, w)) < 0.5)
+                    & (np.arange(w)[None, :] < end[:, None]))
+        else:
+            lo = 0 if w == 4 else w // 2 + 1
+            deg = rng.integers(lo, w + 1, size=r)
+            mask = np.arange(w)[None, :] < deg[:, None]
+        idx = np.where(mask, rng.integers(0, E, (r, w)), 0).astype(np.int32)
+        a_dm = np.where(mask[..., None], a_flat[idx], 0.0)
+        buckets.append((idx, mask, dests[off:off + r], a_dm))
+        off += r
+    return a_flat, x, buckets
+
+
+@pytest.mark.parametrize("m", [1, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ax_plan_kernels_match_plain(dev, m, dtype):
+    """K2 and K4 over a whole multi-bucket plan, one launch each (plus the
+    second pass), against their plain versions; K4 fed a ⊙ x equals K2 bit
+    for bit; two runs are bit-identical; every destination is written."""
+    rng = np.random.default_rng(40 + m)
+    E = 1_000_000
+    a_flat, x, buckets = _plan_np(rng, m, E)
+    to = lambda v: torch.from_numpy(v).to(dev)
+    x_t, af_t = to(x).to(dtype), to(a_flat).to(dtype)
+    plan = AxPlan(tuple(AxBucket(to(i), to(mk), to(d), to(a).to(dtype))
+                        for i, mk, d, a in buckets),
+                  inv_perm=torch.zeros(sum(r for _, r in PLAN_SHAPE),
+                                       dtype=torch.int32, device=dev))
+    plan_g = AxPlan(tuple(b._replace(a_dm=None) for b in plan.buckets),
+                    plan.inv_perm)
+    J = plan.num_destinations
+    work = plan_work(plan)
+    assert work.multi.shape[0] > 0 and work.items.shape[0] > J
+    outs = []
+    for _ in range(2):
+        out = torch.full((m, J), float("nan"), device=dev)
+        before = ax_reduce_plan_x.launches
+        ax_reduce_plan_x(x_t, plan, out, work)
+        torch.cuda.synchronize()
+        assert ax_reduce_plan_x.launches == before + 1
+        outs.append(out)
+    assert not torch.isnan(outs[0]).any()
+    assert torch.equal(outs[0], outs[1])
+    # the kernel's own order of the sums, in plain torch
+    assert torch.equal(outs[0], ref.ax_items_ref(plan, work, x=x_t))
+    # the inv_perm-free reference: each bucket's rows at its dest_ids
+    want = torch.empty((m, J), device=dev)
+    for b in plan.buckets:
+        want[:, b.dest_ids.long()] = ref.ax_reduce_x_ref(
+            x_t, b.a_dm, b.edge_idx, b.mask).T
+    tol = 1e-5 if dtype == torch.float32 else 5e-2
+    np.testing.assert_allclose(outs[0].cpu().numpy(), want.cpu().numpy(),
+                               rtol=tol, atol=tol)
+    gvals = af_t * x_t[:, None]
+    out_g = torch.full((m, J), float("nan"), device=dev)
+    before = ax_reduce_plan.launches
+    ax_reduce_plan(gvals, plan_g, out_g, plan_work(plan_g))
+    torch.cuda.synchronize()
+    assert ax_reduce_plan.launches == before + 1
+    assert torch.equal(out_g, outs[0])
+    want_g = torch.empty((m, J), device=dev)
+    for b in plan_g.buckets:
+        want_g[:, b.dest_ids.long()] = ref.ax_reduce_ref(
+            gvals, b.edge_idx, b.mask).T
+    np.testing.assert_allclose(out_g.cpu().numpy(), want_g.cpu().numpy(),
+                               rtol=tol, atol=tol)
+    # a table is bound to the tensors it was built for, and to a big
+    # enough x and out
+    with pytest.raises(ValueError):
+        ax_reduce_plan_x(x_t, plan, out_g, plan_work(plan_g))
+    with pytest.raises(ValueError):
+        ax_reduce_plan_x(x_t[:10], plan, out_g, work)
+    with pytest.raises(ValueError):
+        ax_reduce_plan_x(x_t, plan, out_g[:, :5].contiguous(), work)
+    # the entry points build the table themselves when none is given
+    assert torch.equal(ops.ax_aligned_x(plan, x_t, out_dtype=torch.float32),
+                       outs[0])
+    assert torch.equal(ops.ax_aligned(plan_g, gvals, out_dtype=torch.float32),
+                       outs[0])
+
+
+def test_ax_plan_against_plan_reference(dev):
+    """The plan-level K2 and K4 on a generated instance's plans against
+    `ref.ax_plan_x_ref` / `ref.ax_plan_ref` (the inv_perm assembly)."""
+    from repro_torch.convert import plan_to_torch
+    from repro_torch.core import build_ax_plan
+    lp_np = generate(InstanceSpec(num_sources=20000, num_destinations=300,
+                                  avg_nnz_per_row=30, seed=3,
+                                  num_families=2))
+    E = sum(s.n * s.width for s in lp_np.slabs)
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.uniform(0, 1, E).astype(np.float32)).to(dev)
+    plan = plan_to_torch(build_ax_plan(lp_np), dev)
+    got = ops.ax_aligned_x(plan, x, work=plan_work(plan))
+    np.testing.assert_allclose(got.cpu().numpy(),
+                               ref.ax_plan_x_ref(plan, x).cpu().numpy(),
+                               rtol=1e-5, atol=1e-5)
+    plan_g = plan_to_torch(build_ax_plan(lp_np, carry_values=False), dev)
+    gvals = torch.from_numpy(rng.uniform(0, 1, (E, 2)).astype(
+        np.float32)).to(dev)
+    got_g = ops.ax_aligned(plan_g, gvals, work=plan_work(plan_g))
+    np.testing.assert_allclose(got_g.cpu().numpy(),
+                               ref.ax_plan_ref(plan_g, gvals).cpu().numpy(),
+                               rtol=1e-5, atol=1e-5)
+
+
 def test_aligned_gvals_equals_aligned_on_card(dev):
     """One evaluation and a 300-iteration trajectory: `aligned_gvals`
     (K3 + K4) equals `aligned` (K1 + K2) bit for bit."""
@@ -253,9 +380,9 @@ def test_aligned_gvals_equals_aligned_on_card(dev):
     assert torch.equal(g1, g2) and torch.equal(d1, d2)
     assert all(torch.equal(u, v) for u, v in zip(a1, a2))
     cfg = SolveConfig(iterations=300, gamma=0.01, max_step=0.1)
-    k3, k4 = dual_grad_slab.launches, ax_reduce_bucket.launches
+    k3, k4 = dual_grad_slab.launches, ax_reduce_plan.launches
     r1, r2 = (Maximizer(cfg).maximize(o) for o in objs)
-    assert dual_grad_slab.launches > k3 and ax_reduce_bucket.launches > k4
+    assert dual_grad_slab.launches > k3 and ax_reduce_plan.launches > k4
     assert torch.equal(r1.lam, r2.lam)
     assert np.array_equal(r1.stats.dual_obj, r2.stats.dual_obj)
 
@@ -295,10 +422,10 @@ def test_solve_on_card_matches_cpu(dev):
     for d in ("cpu", dev):
         lp, _ = precondition(lp_to_torch(lp_np, d), row_norm=True)
         obj = MatchingObjective(lp)
-        k1, k2 = dual_x_slab.launches, ax_reduce_bucket_x.launches
+        k1, k2 = dual_x_slab.launches, ax_reduce_plan_x.launches
         res = Maximizer(cfg).maximize(obj, criteria=crit)
         out[str(d)] = (res, dual_x_slab.launches - k1,
-                       ax_reduce_bucket_x.launches - k2)
+                       ax_reduce_plan_x.launches - k2)
     cpu, gpu = out["cpu"], out["cuda"]
     assert cpu[1] == 0 and cpu[2] == 0
     assert gpu[1] > 0 and gpu[2] > 0

@@ -13,27 +13,36 @@ nothing of JAX or of the JAX package.  Phases, each failing loudly:
               launch counter is set to 0 just before and read just after;
               each kernel of the path must have launched.  Then the
               counters of one dual evaluation (what an agd iteration runs
-              once).
+              once), and its time: synchronised and host enqueue without
+              the profiler, and the device's kernel time in a window
+              profiled for device activity alone (idle share against
+              the unprofiled synchronised time).
   4. kernels  K1 and K2 against their plain PyTorch versions on the card,
               on the main path's own tensors (K1: every slab in float32,
-              bfloat16 copies of the widest and narrowest; K2: every
+              bfloat16 copies of the widest and narrowest, and every slab
+              bit for bit against its kernel-order plain version at 4, 8
+              and 16 values a lane, each layout timed; the bisection's
+              steps at the final lambda and at lambda = 0; K2: every
               bucket alone and the whole plan in one call, float32 and a
               bfloat16 copy, bit for bit against its kernel-order plain
               version), with times (CUDA events, median of 20 after
-              warm-up), the memory/operation bound, and a library
-              yardstick where one PyTorch call computes the same function
-              (K2: the ratio to it, and the same Ax over work tables of
-              other item sizes and bands); then row norms and 50 main-path
-              iterations, each twice, bit for bit
+              warm-up), the bound max(bytes, operations) (K1 and K3: the
+              operations at each row's own bisection steps, at the float32
+              lane rate; the SASS loop's lockstep issue time printed
+              beside it), and a library yardstick where one PyTorch call
+              computes the same function (K2: the ratio to it, and the
+              same Ax over work tables of other item sizes and bands);
+              then row norms and 50 main-path iterations, each twice, bit
+              for bit
   5. gvals    the main path's instance again through the CLI entry point
               with --ax-mode aligned_gvals --certify (K3 + K4), then one
               evaluation there equal bit for bit to the aligned path's at
-              its final lambda; K3, K4 (as K2 in 4, and equal to K2's Ax
-              bit for bit) and K5 against their plain versions at the
-              main path's shapes, timed as in 4 (K5 through its
-              entry point `ops.proj_boxcut`, on every slab's
-              pre-projection u, which it must map to K1's x); then the
-              same instance with --ax-mode scatter
+              its final lambda; K3 (as K1 in 4), K4 (as K2 in 4, and
+              equal to K2's Ax bit for bit) and K5 against their plain
+              versions at the main path's shapes, timed as in 4 (K5
+              through its entry point `ops.proj_boxcut`, on every slab's
+              pre-projection u, which it must map to K1's x within 1e-4);
+              then the same instance with --ax-mode scatter
   6. wide     3,000 x 5,000 at nu = 1000 (a 2,048-wide slab) through the
               CLI entry point: 50 iterations against the reference CLI's
               dual, then to tolerance with a valid certificate; K1 on its
@@ -52,6 +61,7 @@ The last three lines of standard output are the card's name and power
 limit, the kernels' JSON record, and {"ok": true, "device": {...}}.  Exits
 non-zero, printing no result, when there is no card.
 """
+import functools
 import json
 import math
 import os
@@ -88,6 +98,9 @@ PARITY_CHECK = 25
 # work tables (item size C, band entries) timed beside the default
 TABLE_SWEEP = ((2048, None), (1024, None), (4096, None), (1024, 1 << 22),
                (4096, 1 << 22), (2048, 1 << 21), (2048, 1 << 23))
+# K1's and K3's values a lane, timed on the main path's slabs (the
+# float32 kernels of the swept layouts cover rows up to 64 wide)
+VPT_SWEEP = (4, 8, 16)
 WRAPPERS = {}    # kernel wrapper name -> wrapper, with its launch counter
 
 
@@ -125,9 +138,231 @@ def bound(nbytes, ops):
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
-def check_dual_x(obj, lam, gamma):
-    """K1 on every slab of the main path against its plain version."""
+def _dual_x_instance(mangled):
+    """(dtype, L, VPT, gvals) of a mangled dual_x.cu register-path kernel
+    name, else None."""
+    m = re.search(r"dual_x_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)ELb([01])E",
+                  mangled)
+    if not m:
+        return None
+    return ("f32" if m.group(1) == "f" else "bf16", int(m.group(2)),
+            int(m.group(3)), m.group(4) == "1")
+
+
+def ptxas_dual_x(log_text):
+    """{(dtype, L, VPT, gvals): (registers, spill store bytes)} of the
+    dual_x kernel instances, from nvcc's -Xptxas -v output."""
+    out, cur, spill = {}, None, 0
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur, spill = _dual_x_instance(m.group(1)), 0
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            out[cur] = (int(m.group(1)), spill)
+            cur = None
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def sass_loop_counts():
+    """{(dtype, L, VPT, gvals): instructions of one bisection step} of the
+    dual_x kernel instances, from `cuobjdump -sass` of the built library:
+    the innermost loop (a backward branch) whose body holds the warp vote
+    of `boxcut_tau_chunk`'s loop condition."""
+    from repro_torch.kernels import _build
+    txt = subprocess.run([_build.cuda_tool("cuobjdump"), "-sass",
+                          str(_build.library_path("dual_x"))],
+                         capture_output=True, text=True, check=True).stdout
+    funcs, key, labels = {}, None, {}
+    pending = []
+    for line in txt.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            key = _dual_x_instance(m.group(1))
+            if key is not None:
+                funcs[key], labels[key] = [], {}
+            continue
+        if key is None:
+            continue
+        m = re.match(r"\s*(\.L_x_\d+):", line)
+        if m:
+            pending.append(m.group(1))
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]+)\*/\s+(.*?)\s*;", line)
+        if m:
+            addr = int(m.group(1), 16)
+            for lab in pending:
+                labels[key][lab] = addr
+            pending = []
+            funcs[key].append((addr, m.group(2)))
+    counts = {}
+    for key, ins in funcs.items():
+        best = None
+        for addr, text in ins:
+            if not re.search(r"\bBRA\b", text):
+                continue
+            m = re.search(r"(0x[0-9a-f]+)\s*$", text)
+            lab = re.search(r"\((\.L_x_\d+)\)", text)
+            tgt = (int(m.group(1), 16) if m else
+                   labels[key].get(lab.group(1)) if lab else None)
+            if tgt is None or tgt >= addr:
+                continue
+            body = [t for a, t in ins if tgt <= a <= addr]
+            if (any("VOTE" in t for t in body)
+                    and (best is None or len(body) < len(best))):
+                best = body
+        if best is not None:
+            counts[key] = len(best)
+    return counts
+
+
+def sm_clock_mhz():
+    """(current, maximum) SM clock of card 0 in MHz, from nvidia-smi."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+                          "--format=csv,noheader,nounits", "-i", "0"],
+                         capture_output=True, text=True,
+                         check=True).stdout.split(",")
+    return float(out[0]), float(out[1])
+
+
+def bisection_steps(slabs, lam, g, iters):
+    """Per slab, from the plain early-exit bisection on the card (the
+    kernels' order of the sums): rows, rows with f0 > s, the steps each
+    such row ran to a fixed bracket, and the mean steps a warp runs (the
+    largest of its rows', the warp looping while any of them is not
+    done)."""
     import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.dual_grad import row_layout
+    stats = []
+    for s in slabs:
+        lay = row_layout(s.width)
+        v, ubp = ref.lanes_u(s.a_vals, s.c_vals, s.dest_idx, s.mask, s.ub,
+                             lam, g, lay)
+        _, steps = ref.bisect_lanes_ref(v, ubp, s.s, iters, lay)
+        del v, ubp
+        groups = 32 // lay[0]
+        warp = torch.nn.functional.pad(steps, (0, (-s.n) % groups))
+        warp = warp.reshape(-1, groups).amax(dim=1)
+        ran = steps[steps > 0].double()
+        stats.append({"width": s.width, "rows": s.n,
+                      "entries": s.n * lay[0] * lay[1],
+                      "entry_steps": int(steps.sum()) * lay[0] * lay[1],
+                      "need": int((steps > 0).sum()),
+                      "mean": float(ran.mean()) if ran.numel() else 0.0,
+                      "max": int(steps.max()), "warps": warp.numel(),
+                      "warp_mean": float(warp.double().mean())})
+    return stats
+
+
+def steps_line(what, stats):
+    need = sum(x["need"] for x in stats)
+    rows = sum(x["rows"] for x in stats)
+    mean = sum(x["mean"] * x["need"] for x in stats) / max(need, 1)
+    return (f"bisection at {what}: {need} of {rows} rows have f0 > s "
+            f"({need / rows:.4f}); steps to a fixed bracket: mean {mean:.3f}, "
+            f"max {max(x['max'] for x in stats)}; by slab (width: share, "
+            f"mean, max, mean a warp) " + ", ".join(
+                f"{x['width']}: {x['need'] / x['rows']:.4f}, {x['mean']:.2f}, "
+                f"{x['max']}, {x['warp_mean']:.2f}" for x in stats))
+
+
+def lockstep_issue(stats, gvals, iters):
+    """A diagnostic, not the bound: the issue time in ms of the built
+    kernels' bisection loops as they run, per slab warps x the loop's SASS
+    instructions a step x the mean steps a warp runs (the largest of its
+    rows', done rows idling in lockstep) or `iters`, at 4 warp
+    instructions a clock an SM at the card's maximum SM clock.  Returns
+    (counted ms, ms at `iters` steps, {layout: instructions a step})."""
+    import torch
+    from repro_torch.kernels.dual_grad import row_layout
+    counts = sass_loop_counts()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    _, clk = sm_clock_mhz()
+    rate = 4 * sms * clk * 1e6                  # warp instructions a second
+    counted = fixed = 0.0
+    per = {}
+    for x in stats:
+        L, V = row_layout(x["width"])
+        key = ("f32", L, V, gvals)
+        require(key in counts, f"no bisection loop found in the SASS of "
+                f"dual_x_kernel {key}")
+        per[f"{L}x{V}"] = counts[key]
+        counted += x["warps"] * x["warp_mean"] * counts[key]
+        fixed += x["warps"] * iters * counts[key]
+    return counted / rate * 1e3, fixed / rate * 1e3, per
+
+
+# float32 operations an entry of K1's function, each one lane-operation
+# (an FMA counts once): a bisection step sums clip(v − mid, 0, ub) over
+# every padded entry of the row (subtract, max, min, add); outside the
+# loop f0 and max v over every padded entry (max, min, add, max), and at
+# each real edge u = −(aᵀλ + c)/γ (m multiply-adds, an add, a scale),
+# x = clip(v − τ, 0, ub) (3) and the c·x and x·x partials (2).  K3 adds
+# m multiplies an edge for gvals.
+OPS_A_STEP, OPS_PADDED, OPS_REAL = 4, 4, 7
+
+
+def issue_bound(stats, real, m, gvals, iters):
+    """The bisection's least issue time in ms: the operations K1's (K3's)
+    function needs on these inputs, each row's own steps to a fixed
+    bracket (`stats`, from `bisection_steps`) over its padded entries,
+    at 128 float32 lanes a clock an SM at the card's maximum SM clock
+    (the 67 TFLOP/s of an H100 counts an FMA as 2).  Returns (ms, ms at
+    `iters` steps a row, operations, SMs, MHz)."""
+    import torch
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    _, clk = sm_clock_mhz()
+    rate = 128 * sms * clk * 1e6                # lane operations a second
+    rest = (sum(x["entries"] for x in stats) * OPS_PADDED
+            + real * (OPS_REAL + m + (m if gvals else 0)))
+    ops = OPS_A_STEP * sum(x["entry_steps"] for x in stats) + rest
+    ops40 = OPS_A_STEP * iters * sum(x["entries"] for x in stats) + rest
+    return ops / rate * 1e3, ops40 / rate * 1e3, ops, sms, clk
+
+
+def lanes_checks(what, kernel, lanes_ref, slabs, lam, g, iters):
+    """Every slab through `kernel` (K1 or K3, at its default layout and at
+    4 and 16 values a lane) bit for bit against its kernel-order plain
+    version; then one sweep timed at each.  Returns {VPT cap: ms}."""
+    import torch
+    from repro_torch.kernels import dual_grad as dg
+    from repro_torch.kernels.dual_grad import row_layout
+    for s in slabs:
+        for cap in VPT_SWEEP:
+            lay = row_layout(s.width, cap)
+            got = kernel(s, lay)
+            want = lanes_ref(*s[:6], lam, g, iters, lay)
+            require(all(torch.equal(u, v) for u, v in zip(got, want)),
+                    f"{what} w={s.width} layout {lay}: not the bits of its "
+                    f"kernel-order plain version")
+    sweep = {}
+    for cap in VPT_SWEEP:
+        lays = [row_layout(s.width, cap) for s in slabs]
+        sweep[cap] = cuda_ms(lambda: [kernel(s, lay)
+                                      for s, lay in zip(slabs, lays)])
+    log(f"{what}  f32 all {len(slabs)} slabs at VPT caps {VPT_SWEEP} (layouts "
+        + ", ".join(f"w={s.width}: " + "/".join(
+            str(row_layout(s.width, c)) for c in VPT_SWEEP) for s in slabs)
+        + "): x, scalars" + (", gvals" if "grad" in what else "")
+        + " equal the kernel-order plain version bit for bit; one sweep "
+        + ", ".join(f"VPT {c}: {t:.4f} ms" for c, t in sweep.items())
+        + f" (default VPT {dg.VPT})")
+    return sweep
+
+
+def check_dual_x(obj, lam, gamma):
+    """K1 on every slab of the main path against its plain version and,
+    bit for bit, its kernel-order plain version; the bisection's steps at
+    the final lambda and at lambda = 0; one sweep timed at three layouts;
+    the bound max(bytes, issue).  Returns the record and the steps."""
+    import torch
+    from repro_torch.kernels import dual_grad as dg
     from repro_torch.kernels import ref
     from repro_torch.kernels.dual_grad import dual_x_slab
     slabs = obj.lp.slabs
@@ -158,6 +393,15 @@ def check_dual_x(obj, lam, gamma):
                 f"dual_x bf16 w={s.width}: {e}, {es}")
         log(f"dual_x_slab  bf16 w={s.width}: max|dx| {e:.3e}, scalars rel "
             f"{es:.3e} (tol 5e-2)")
+    sweep = lanes_checks(
+        "dual_x_slab",
+        lambda s, lay: dg._launch(dual_x_slab, *s[:6], lam, g, iters, None,
+                                  None, lay),
+        ref.dual_x_lanes_ref, slabs, lam, g, iters)
+    steps = bisection_steps(slabs, lam, g, iters)
+    log(steps_line("the final lambda", steps))
+    log(steps_line("lambda = 0",
+                   bisection_steps(slabs, torch.zeros_like(lam), g, iters)))
 
     def kernel():
         for s in slabs:
@@ -172,18 +416,48 @@ def check_dual_x(obj, lam, gamma):
     m, J = lam.shape
     nbytes, real, padded, rows, ea, ec, eu = _slab_bytes(slabs, m, J)
     nbytes += padded * ec                     # x written
-    ops = real * (2 * m + 12 + 4 * iters)
-    bound_ms, bound_by = bound(nbytes, ops)
+    rec = {"name": "dual_x_slab", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/dual_x.cu",
+           "replaces": "src/repro/kernels/dual_grad.py:80",
+           "max_abs_err": err_x, "ms": ms, "plain_ms": plain_ms,
+           "library_ms": None}
+    rec.update(_lanes_bound("dual_x_slab", nbytes, steps, real, m, False,
+                            iters, sweep))
     log(f"dual_x_slab  one sweep ({len(slabs)} slabs, {real} real edges of "
         f"{padded}): {ms:.4f} ms; plain {plain_ms:.4f} ms; bound "
-        f"{bound_ms:.4f} ms = max({nbytes} bytes / 3.35 TB/s, {ops} ops / "
-        f"67 TFLOP/s); bytes = real*({ea}m + {ec} c + 4 dest + {eu} ub) + "
-        f"padded*(1 mask + {ec} x) + {rows} rows*s + 4mJ")
-    return {"name": "dual_x_slab", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/dual_x.cu",
-            "replaces": "src/repro/kernels/dual_grad.py:80",
-            "max_abs_err": err_x, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+        f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}); bytes = real*({ea}m + "
+        f"{ec} c + 4 dest + {eu} ub) + padded*(1 mask + {ec} x) + {rows} "
+        f"rows*s + 4mJ")
+    return rec, steps
+
+
+def _lanes_bound(what, nbytes, steps, real, m, gvals, iters, sweep):
+    """K1's or K3's bound max(bytes, issue) and its parts, logged: the
+    issue term from the operations the function needs at each row's own
+    steps; the SASS loop's lockstep issue time beside it."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    issue_ms, issue40_ms, ops, sms, clk = issue_bound(steps, real, m, gvals,
+                                                      iters)
+    lock_ms, lock40_ms, per = lockstep_issue(steps, gvals, iters)
+    log(f"{what}  bound = max({nbytes} bytes / 3.35 TB/s = {bytes_ms:.4f} ms, "
+        f"issue {issue_ms:.4f} ms) = {max(bytes_ms, issue_ms):.4f} ms; issue "
+        f"= {ops} float32 operations ({OPS_A_STEP} a step over each row's "
+        f"padded entries x its own steps to a fixed bracket, {OPS_PADDED} a "
+        f"padded entry, {OPS_REAL} + m{' + m' if gvals else ''} a real edge) "
+        f"at 128 lanes a clock on {sms} SMs at {clk:.0f} MHz; at {iters} "
+        f"steps a row: {issue40_ms:.4f} ms.  Diagnostic, not the bound: the "
+        f"built loop in lockstep (SASS instructions a step by layout L x "
+        f"VPT: {per}, x warps x mean steps a warp, at 4 warp instructions "
+        f"a clock an SM): {lock_ms:.4f} ms, at {iters} steps {lock40_ms:.4f} "
+        f"ms")
+    return {"bound_ms": max(bytes_ms, issue_ms),
+            "bound_by": "bytes" if bytes_ms >= issue_ms else "operations",
+            "bound_bytes_ms": bytes_ms, "bound_issue_ms": issue_ms,
+            "bound_issue_fixed_count_ms": issue40_ms,
+            "lockstep_issue_ms": lock_ms,
+            "lockstep_issue_fixed_count_ms": lock40_ms,
+            "loop_instructions": per,
+            "ms_by_vpt": {str(c): t for c, t in sweep.items()}}
 
 
 def _ax_plan_checks(what, plan, work, src, m, kernel, plain, items_kw):
@@ -343,10 +617,13 @@ def _slab_bytes(slabs, m, J):
     return nbytes, real, padded, rows, ea, ec, eu
 
 
-def check_dual_grad(obj, lam, gamma):
-    """K3 on every slab of the main path against its plain version, and
-    its x, c_x, x_sq against K1's bit for bit."""
+def check_dual_grad(obj, lam, gamma, steps):
+    """K3 on every slab of the main path against its plain version and,
+    bit for bit, its kernel-order plain version, and its x, c_x, x_sq
+    against K1's bit for bit; timed at three layouts; the bound max(bytes,
+    issue) at the bisection `steps` K1's check counted."""
     import torch
+    from repro_torch.kernels import dual_grad as dg
     from repro_torch.kernels import ref
     from repro_torch.kernels.dual_grad import dual_grad_slab, dual_x_slab
     slabs = obj.lp.slabs
@@ -389,6 +666,16 @@ def check_dual_grad(obj, lam, gamma):
         log(f"dual_grad_slab  bf16 w={s.width}: max|dx|,|dg| {e:.3e}, "
             f"scalars rel {es:.3e} (tol 5e-2)")
 
+    def k3(s, lay):
+        gv = torch.empty(s.a_vals.shape, dtype=s.a_vals.dtype,
+                         device=lam.device)
+        x, cx, xsq = dg._launch(dual_grad_slab, *s[:6], lam, g, iters, None,
+                                gv, lay)
+        return x, gv, cx, xsq
+
+    sweep = lanes_checks("dual_grad_slab", k3, ref.dual_grad_lanes_ref,
+                         slabs, lam, g, iters)
+
     def kernel():
         for s in slabs:
             dual_grad_slab(*s[:6], lam, g, iters=iters)
@@ -402,18 +689,19 @@ def check_dual_grad(obj, lam, gamma):
     m, J = lam.shape
     nbytes, real, padded, rows, ea, ec, eu = _slab_bytes(slabs, m, J)
     nbytes += padded * (ec + ea * m)          # x and gvals written
-    ops = real * (3 * m + 12 + 4 * iters)
-    bound_ms, bound_by = bound(nbytes, ops)
+    rec = {"name": "dual_grad_slab", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/dual_x.cu",
+           "replaces": "src/repro/kernels/dual_grad.py:32",
+           "max_abs_err": err_x, "ms": ms, "plain_ms": plain_ms,
+           "library_ms": None}
+    rec.update(_lanes_bound("dual_grad_slab", nbytes, steps, real, m, True,
+                            iters, sweep))
     log(f"dual_grad_slab  one sweep ({len(slabs)} slabs, {real} real edges of "
         f"{padded}): {ms:.4f} ms; plain {plain_ms:.4f} ms; bound "
-        f"{bound_ms:.4f} ms = max({nbytes} bytes / 3.35 TB/s, {ops} ops / "
-        f"67 TFLOP/s); bytes = real*({ea}m a + {ec} c + 4 dest + {eu} ub) + "
-        f"padded*(1 mask + {ec} x + {ea}m gvals) + {rows} rows*s + 4mJ")
-    return {"name": "dual_grad_slab", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/dual_x.cu",
-            "replaces": "src/repro/kernels/dual_grad.py:32",
-            "max_abs_err": err_x, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+        f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}); bytes = real*({ea}m a "
+        f"+ {ec} c + 4 dest + {eu} ub) + padded*(1 mask + {ec} x + {ea}m "
+        f"gvals) + {rows} rows*s + 4mJ")
+    return rec
 
 
 def check_ax_reduce_gvals(obj, obj_x):
@@ -813,6 +1101,34 @@ def read_counters():
     return {name: fn.launches for name, fn in WRAPPERS.items()}
 
 
+def evaluation_timing(obj, lam, gamma, reps=10):
+    """One dual evaluation at lambda, after warm-up: (synchronised ms and
+    host enqueue ms, both without the profiler; device kernel ms from a
+    window profiled for device activity alone, or None if it records no
+    device time)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    g = torch.full((), gamma, device=lam.device)
+    for _ in range(3):
+        obj.calculate(lam, g)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        obj.calculate(lam, g)
+    t_enq = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t_all = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            obj.calculate(lam, g)
+        torch.cuda.synchronize()
+    busy = sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA) / 1e3
+    return (t_all / reps * 1e3, t_enq / reps * 1e3,
+            busy / reps if busy > 0 else None)
+
+
 def drive(args, inst, expect, what):
     """One run of the CLI's entry point on the generated instance, with
     every launch counter set to 0 just before and read just after; each
@@ -844,6 +1160,13 @@ def drive(args, inst, expect, what):
     out.objective.calculate(lam, torch.full((), out.gamma, device=lam.device))
     per_eval = read_counters()
     log(f"{what}: launches of one dual evaluation: {per_eval}")
+    t_eval, t_enq, busy = evaluation_timing(out.objective, lam, out.gamma)
+    log(f"{what}: one dual evaluation at the final lambda {t_eval:.4f} ms "
+        f"synchronised, host enqueue {t_enq:.4f} ms (no profiler); device "
+        f"kernel time " + (
+            "not measured (the profiler recorded none)" if busy is None else
+            f"{busy:.4f} ms (torch.profiler, device activity only), idle "
+            f"share {1 - busy / t_eval:.4f} of the unprofiled time"))
     return out, launches, per_eval
 
 
@@ -877,7 +1200,14 @@ def main() -> int:
     spills = len(re.findall(r"[1-9]\d* bytes spill stores", ptxas))
     log(f"build: {_build.build_seconds():.1f} s (nvcc, sm_90a, in parallel); "
         f"ptxas: {len(regs)} kernels, at most {max(regs, default=0)} "
-        f"registers, {spills} with spills")
+        f"registers, {spills} with spills; "
+        + "; ".join(re.findall(r"== nvcc (\S+ \(rc=\d+, done after [\d.]+ s\))",
+                               ptxas)))
+    inst = ptxas_dual_x(ptxas)
+    log("dual_x register-path instances (type L x VPT K1|K3: registers, "
+        "spill store bytes): " + ", ".join(
+            f"{d} {L}x{V} {'K3' if gv else 'K1'}: {r}, {sp}"
+            for (d, L, V, gv), (r, sp) in sorted(inst.items())))
 
     # 3. the main path, through the CLI's entry point
     args = solve.build_parser().parse_args(MAIN_ARGS)
@@ -891,7 +1221,7 @@ def main() -> int:
               "ax_reduce_plan_x": (launches, per_eval)}
 
     # 4. K1, K2 against their plain versions, at the main path's shapes
-    records["dual_x_slab"] = check_dual_x(out.objective, lam, gamma)
+    records["dual_x_slab"], steps = check_dual_x(out.objective, lam, gamma)
     records["ax_reduce_plan_x"] = check_ax_reduce(out.objective)
     repeatability(out.objective, gamma)
 
@@ -912,7 +1242,8 @@ def main() -> int:
         "aligned's bit for bit (g, grad, aux)")
     counts["dual_grad_slab"] = (launches_g, per_eval_g)
     counts["ax_reduce_plan"] = (launches_g, per_eval_g)
-    records["dual_grad_slab"] = check_dual_grad(out_g.objective, lam, gamma)
+    records["dual_grad_slab"] = check_dual_grad(out_g.objective, lam, gamma,
+                                                steps)
     records["ax_reduce_plan"] = check_ax_reduce_gvals(out_g.objective,
                                                       out.objective)
     del out_g

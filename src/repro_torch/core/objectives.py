@@ -132,13 +132,31 @@ def dual_value_and_grad(lp: LPData, lam, gamma, proj_kind: str = "boxcut",
                                  infeas=infeas)
 
 
+def _edge_map(starts, offsets, device):
+    """The map of an edge index from the slabs' concatenated edge space
+    (slab k's edges from `starts[k]`) to the flat buffers' (from
+    `offsets[k]`), as a function of an index tensor; None where the two
+    spaces are one."""
+    if starts == offsets:
+        return None
+    first = torch.tensor(starts, dtype=torch.long, device=device)
+    shift = torch.tensor([o - s for o, s in zip(offsets, starts)],
+                         dtype=torch.long, device=device)
+
+    def to_buf(idx):
+        k = torch.searchsorted(first, idx.long(), right=True) - 1
+        return (idx + shift[k]).to(idx.dtype)
+    return to_buf
+
+
 class MatchingObjective:
     """Paper §4 `ObjectiveFunction` facade over an LP on one device, in any
     of the reference's `ax_mode`s (module docstring).
 
     The sweep writes each slab's x (and, in the gvals modes, its gvals)
-    into a slice of one flat buffer in slab-concatenation order, the
-    plan's edge space, allocated once here.
+    into a slice of one flat buffer in slab-concatenation order, allocated
+    once here.  Each slice starts on a 16-byte boundary, and the plan's
+    edge indices are mapped to that layout where it leaves gaps.
     """
 
     def __init__(self, lp: LPData, proj_kind: str = "boxcut",
@@ -162,27 +180,42 @@ class MatchingObjective:
                     "ax_mode='aligned' (x-carry) needs a value-carrying "
                     "plan; rebuild with build_ax_plan(lp, carry_values=True) "
                     "or use ax_mode='aligned_gvals'")
+        dtype = lp.slabs[0].c_vals.dtype if lp.slabs else torch.float32
+        # each slab's slice of the flat buffers starts on a 16-byte
+        # boundary, as the sweep kernels' vector stores need: the slabs'
+        # concatenated edge space with a gap of at most 15 bytes before a
+        # slab, which the plan's edge indices and the sorted order follow
+        align = 16 // torch.empty((), dtype=dtype).element_size()
+        starts, self._offsets, end, off = [], [], 0, 0
+        for s in lp.slabs:
+            off = -(-off // align) * align
+            starts.append(end)
+            self._offsets.append(off)
+            end += s.n * s.width
+            off += s.n * s.width
+        to_buf = _edge_map(starts, self._offsets, device)
+        if ax_plan is not None and to_buf is not None:
+            ax_plan = ax_plan._replace(buckets=tuple(
+                b._replace(edge_idx=to_buf(b.edge_idx))
+                for b in ax_plan.buckets))
         self._plan = ax_plan
         # the Ax kernels' work table, built once a plan (on the card only:
         # the CPU's plain versions sum bucket by bucket)
         self._work = (kops.plan_work(ax_plan)
                       if ax_plan is not None and device.type == "cuda"
                       else None)
-        self._offsets = []
-        off = 0
-        for s in lp.slabs:
-            self._offsets.append(off)
-            off += s.n * s.width
-        dtype = lp.slabs[0].c_vals.dtype if lp.slabs else torch.float32
         # the flat (E,) x buffer every evaluation's sweep writes into, and
-        # in the gvals modes the flat (E, m) gvals buffer
-        self._xbuf = torch.empty(off, dtype=dtype, device=device)
+        # in the gvals modes the flat (E, m) gvals buffer; the gaps stay 0
+        self._xbuf = torch.zeros(off, dtype=dtype, device=device)
         self._gbuf = None
         if ax_mode != "aligned":
-            self._gbuf = torch.empty((off, lp.m), dtype=dtype, device=device)
+            self._gbuf = torch.zeros((off, lp.m), dtype=dtype, device=device)
         if ax_mode == "scatter":
-            self._flat_dest = torch.cat(
-                [s.dest_idx.reshape(-1) for s in lp.slabs]).long()
+            # the gaps add their zeros to destination 0, as padding does
+            self._flat_dest = torch.zeros(off, dtype=torch.long,
+                                          device=device)
+            for o, s in zip(self._offsets, lp.slabs):
+                self._flat_dest[o:o + s.n * s.width] = s.dest_idx.reshape(-1)
         elif ax_mode == "sorted":
             # host-side stable sort of the real edges by destination, once;
             # padding adds only zeros to destination 0, so it is left out
@@ -190,8 +223,9 @@ class MatchingObjective:
                                     for s in lp.slabs])
             real = np.nonzero(np.concatenate(
                 [s.mask.cpu().numpy().reshape(-1) for s in lp.slabs]))[0]
-            order = real[np.argsort(dests[real], kind="stable")]
-            self._perm = torch.from_numpy(order).to(device)
+            order = torch.from_numpy(
+                real[np.argsort(dests[real], kind="stable")]).to(device)
+            self._perm = order if to_buf is None else to_buf(order)
             self._lengths = torch.from_numpy(np.bincount(
                 dests[real], minlength=lp.num_destinations)).to(device)
 

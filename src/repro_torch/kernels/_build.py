@@ -21,7 +21,11 @@ from typing import Dict, Optional
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC")
+# per library: ptxas reports each dual_x kernel instance's registers and
+# spills (read by chip_smoke.py), and nvcc optimizes the library's many
+# kernel instances in parallel (otherwise the slowest build by twice)
+EXTRA_FLAGS = {"dual_x": ("-Xptxas", "-v", "--split-compile=0")}
 
 _vp = ctypes.c_void_p
 _i = ctypes.c_int
@@ -34,9 +38,9 @@ _TABLE = [_vp, _vp, _i, _vp, _i, _vp, _vp, _i, _vp]
 # argtypes/restype of every C entry point, per library
 SIGNATURES = {
     "dual_x": {   # K1 dual_x and K3 dual_grad
-        "dual_x_scratch": ([_ll, _i], _ll),
-        "dual_x_launch": ([_i] + [_vp] * 12 + [_ll, _i, _i, _i, _i, _vp], _i),
-        "dual_grad_launch": ([_i] + [_vp] * 13 + [_ll, _i, _i, _i, _i, _vp],
+        "dual_x_scratch": ([_ll, _i, _i], _ll),
+        "dual_x_launch": ([_i] + [_vp] * 12 + [_ll] + [_i] * 6 + [_vp], _i),
+        "dual_grad_launch": ([_i] + [_vp] * 13 + [_ll] + [_i] * 6 + [_vp],
                              _i),
     },
     "ax_reduce_x": {   # K2
@@ -64,6 +68,16 @@ class _State:
     build_log: str = ""
 
 
+def cuda_tool(name: str) -> str:
+    """Path of a CUDA toolkit program (nvcc, cuobjdump) next to nvcc."""
+    return str(Path(_nvcc()).with_name(name))
+
+
+def library_path(name: str) -> Path:
+    """Where `build()` puts the library of `csrc/<name>.cu`."""
+    return BUILD_ROOT / _source_hash() / f"lib{name}.so"
+
+
 def _nvcc() -> str:
     cand = [shutil.which("nvcc")]
     home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
@@ -78,7 +92,7 @@ def _nvcc() -> str:
 
 
 def _source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(repr((NVCC_FLAGS, EXTRA_FLAGS)).encode())
     for p in sorted(CSRC.glob("*.cu*")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -99,15 +113,16 @@ def build() -> Dict[str, ctypes.CDLL]:
         if lib.exists():
             continue
         tmp = out_dir / f"lib{name}.{os.getpid()}.tmp.so"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-               str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *NVCC_FLAGS, *EXTRA_FLAGS.get(name, ()),
+               "-I", str(CSRC), "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, lib)
     logs, failed = [], []
     for name, (proc, tmp, lib) in procs.items():
         out, _ = proc.communicate()
-        logs.append(f"== nvcc {name}.cu (rc={proc.returncode})\n{out}")
+        logs.append(f"== nvcc {name}.cu (rc={proc.returncode}, done after "
+                    f"{time.perf_counter() - t0:.1f} s)\n{out}")
         if proc.returncode != 0:
             failed.append(name)
         else:
@@ -133,7 +148,8 @@ def build_seconds() -> float:
 
 
 def build_log() -> str:
-    """nvcc's output of this process's builds (ptxas register/spill lines)."""
+    """nvcc's output of this process's builds (ptxas register/spill lines
+    of the libraries built with `-Xptxas -v`)."""
     return _State.build_log
 
 

@@ -43,7 +43,6 @@
 //    which load path a group took, and equal to `ref.ax_items_ref`.
 #pragma once
 
-#include <string.h>
 #include <type_traits>
 
 #include "common.cuh"
@@ -66,45 +65,6 @@ struct Buckets {
   int width[kMaxBuckets];
   unsigned vec;                      // bit b: bucket b takes vector loads
 };
-
-// One load of a streamed (read once, evict first: `__ldcs`) or gathered
-// (read-only path: `__ldg`) value.
-template <bool kStream, typename T>
-__device__ __forceinline__ T ld(const T* p) {
-  if constexpr (kStream)
-    return __ldcs(p);
-  else
-    return __ldg(p);
-}
-
-// N values of T from p by vector loads, as wide as the N·sizeof(T) bytes
-// allow (up to 16); p must be aligned to that width.
-template <bool kStream, typename T, int N>
-__device__ __forceinline__ void ld_vec(const T* p, T (&v)[N]) {
-  constexpr int kBytes = N * (int)sizeof(T);
-  constexpr int kVec = kBytes % 16 == 0 ? 16
-                       : kBytes % 8 == 0 ? 8
-                       : kBytes % 4 == 0 ? 4 : 2;
-  const char* s = reinterpret_cast<const char*>(p);
-  char* d = reinterpret_cast<char*>(v);
-#pragma unroll
-  for (int i = 0; i < kBytes / kVec; ++i) {
-    if constexpr (kVec == 16) {
-      const uint4 u = ld<kStream>(reinterpret_cast<const uint4*>(s) + i);
-      memcpy(d + 16 * i, &u, 16);
-    } else if constexpr (kVec == 8) {
-      const uint2 u = ld<kStream>(reinterpret_cast<const uint2*>(s) + i);
-      memcpy(d + 8 * i, &u, 8);
-    } else if constexpr (kVec == 4) {
-      const unsigned u = ld<kStream>(reinterpret_cast<const unsigned*>(s) + i);
-      memcpy(d + 4 * i, &u, 4);
-    } else {
-      const unsigned short u =
-          ld<kStream>(reinterpret_cast<const unsigned short*>(s) + i);
-      memcpy(d + 2 * i, &u, 2);
-    }
-  }
-}
 
 // One warp an item: the sum of entries [q0, q1) of one plan row.  items[i]
 // = (bucket, row, q0, q1); item_dest[i] = j >= 0 stores to out[k, j], and

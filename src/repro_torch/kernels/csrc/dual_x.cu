@@ -5,38 +5,60 @@
 // `_dual_x_kernel` / `dual_x_slab` (K1) and `_dual_grad_kernel` /
 // `dual_grad_slab` (K3).  Per source row of a (n, w, m) slab: gather
 // λ[k, dest], form u = −(Σ_k a_k·λ_k + c)/γ, project onto the box-cut
-// {0 <= x <= ub, Σx <= s} by `iters` τ-bisection steps, write x (and
-// gvals), and sum c·x and x·x in float32.  K3 is K1's body with the
+// {0 <= x <= ub, Σx <= s} by a τ-bisection of at most `iters` steps, write
+// x (and gvals), and sum c·x and x·x in float32.  K3 is K1's body with the
 // template flag kGvals set, so its x, cᵀx and ‖x‖² are K1's bit for bit.
 //
-// What bounds it on an H100: device-memory bytes.  Each edge is read once
-// (a, c, ub, dest, mask: 17 bytes at float32, m = 1) and x written once
-// (4 bytes), plus m·4 bytes of gvals for K3; the 40 bisection steps cost
-// ~170 float32 operations an edge, which at 67 TFLOP/s is below the
-// 21 bytes at 3.35 TB/s.  λ (m·J floats, 40 KB at J = 10⁴) stays in L2.
+// What bounds it on an H100: device-memory bytes and the issue rate of
+// the bisection, about equally.  Each real edge is read once (a, c, ub,
+// dest: 16 bytes at float32, m = 1; the mask a byte an entry) and x
+// written once (4 bytes), plus m·4 bytes of gvals for K3: ~0.34 ms on the
+// main path.  Each bisection step costs ~4 instructions an entry (a
+// subtraction, a max, a min, an add) over every padded entry of a row
+// that has not converged, ~0.3 ms at 40 steps.  λ (m·J floats, 40 KB at
+// J = 10⁴) stays in L2.
 //
-// What the design does about it: rows up to 1,024 wide go one row per
-// group of L lanes (L = 32 for w >= 32, else the next power of two of w),
-// lanes striding over the row so a warp's loads are coalesced; the row's
-// values stay in registers (VPT <= 32 a lane) for all bisection steps, so
-// the slab is read from device memory exactly once; row sums go through
-// xor shuffles.  K3 re-reads a for its gvals write rather than holding
-// m·VPT more values in registers (K1 already runs at 128 registers).
+// What the design does about it, rows up to 1,024 wide: a row goes to a
+// group of L lanes, lane l owning the contiguous columns [l·VPT,
+// (l+1)·VPT); the layout (L, VPT) comes from the wrapper
+// (`kernels/dual_grad.py::row_layout`: VPT = min(w, 8), w/32 past 256).
+// A lane loads its chunk of a, c, ub, dest and mask with 16-byte
+// streaming vector loads (`__ldcs`, evict first), so a warp reads whole
+// sectors, and holds v and ub in registers for the whole bisection.  A
+// bisection step sums the chunk in order inside the lane and then runs a
+// butterfly over the L lanes only: 2 shuffle levels at w = 32 where a
+// warp a row took 5.  The loop stops exactly when its bracket stops
+// moving (`boxcut_tau_chunk`): a row whose f0 <= s runs no step, and a
+// warp stops once all its rows' brackets are fixed, giving the result of
+// all `iters` steps bit for bit.  x (and K3's gvals, formed from the a
+// values the lane holds when VPT <= 8 and m <= 2) leave by streaming
+// vector stores.  A row whose width is not a multiple of VPT (never made
+// by the slab builder, whose widths are powers of two) takes the same
+// columns one by one.
+//
 // Wider rows go one row per 256-thread block: u and ub are formed once
 // into dynamic shared memory (global scratch past 16,384 entries) and the
-// same bisection runs with fixed-order block sums (`boxcut_tau_row`).
-// λ is read through the read-only path (__ldg).  The scalar partials are
-// reduced per block and written to a scratch vector; a second one-block
-// pass sums them in a fixed order.  No atomics: results are bit-identical
-// from run to run.  γ is read from device memory (a 0-d tensor in the
-// slab's type, as the Pallas kernel reads gamma_ref), so a schedule that
-// moves γ needs no host synchronisation.
+// fixed-count bisection runs with fixed-order block sums
+// (`boxcut_tau_row`).  λ is read through the read-only path (__ldg).  The
+// scalar partials are reduced per block and written to a scratch vector;
+// a second one-block pass sums them in a fixed order.  No atomics:
+// results are bit-identical from run to run.  γ is read from device
+// memory (a 0-d tensor in the slab's type, as the Pallas kernel reads
+// gamma_ref), so a schedule that moves γ needs no host synchronisation.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace repro_torch {
 namespace {
 
 constexpr int kThreads = 256;  // 8 warps a block
+
+// atl + a·λ, K1's literal order (no contraction into an FMA).
+template <typename T>
+__device__ __forceinline__ float add_term(float atl, T a, float lam) {
+  return __fadd_rn(atl, __fmul_rn(to_float(a), lam));
+}
 
 // u = −(Σ_k a_k·λ_k[dest] + c)/γ of one real edge, in K1's literal order.
 template <typename T>
@@ -48,8 +70,7 @@ __device__ __forceinline__ float edge_u(const T* __restrict__ a,
   const int d = dest[e];
   float atl = 0.0f;
   for (int k = 0; k < m; ++k)
-    atl = __fadd_rn(atl, __fmul_rn(to_float(a[e * (size_t)m + k]),
-                                   __ldg(lam + (size_t)k * J + d)));
+    atl = add_term(atl, a[e * (size_t)m + k], __ldg(lam + (size_t)k * J + d));
   return -__fadd_rn(atl, to_float(c[e])) / gam;
 }
 
@@ -65,6 +86,8 @@ __device__ __forceinline__ void write_gvals(const T* __restrict__ a,
            : from_float<T>(0.0f);
 }
 
+// K1 (kGvals false) and K3 (true) on rows up to 1,024 wide: a row to a
+// group of L lanes, lane l holding columns [l·VPT, (l+1)·VPT).
 template <typename T, int L, int VPT, bool kGvals>
 __global__ void __launch_bounds__(kThreads)
 dual_x_kernel(const T* __restrict__ a, const T* __restrict__ c,
@@ -75,45 +98,109 @@ dual_x_kernel(const T* __restrict__ a, const T* __restrict__ c,
               T* __restrict__ g, float* __restrict__ partials, long long n,
               int w, int m, int J, int iters) {
   constexpr int kGroups = 32 / L;  // rows a warp
+  // K3 keeps the chunk's a values for its gvals write up to VPT = 8
+  constexpr bool kHoldA = kGvals && VPT <= 8;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int gl = lane % L;
+  const int col0 = (lane % L) * VPT;
   const long long row =
       ((long long)blockIdx.x * (kThreads / 32) + warp) * kGroups + lane / L;
   const bool row_ok = row < n;
   const float gam = to_float(gamma[0]);
   const float s_row = row_ok ? to_float(s[row]) : 1.0f;
+  // this lane's columns of the row: [col0, col0 + nin)
+  const int nin = row_ok ? min(max(w - col0, 0), VPT) : 0;
+  // whole chunk, rows a multiple of the vector width: vector loads
+  const bool vec = nin == VPT && w % VPT == 0;
+  const bool avec = vec && m <= 2;
+  const size_t e0 = row_ok ? (size_t)row * (size_t)w + (size_t)col0 : 0;
 
-  float v[VPT], ubv[VPT];
-  bool mk[VPT];
+  T cv[VPT], ubt[VPT], ar[2 * VPT];
+  int32_t dv[VPT];
+  uint8_t mv[VPT];
+  if (vec) {
+    ld_vec<true>(c + e0, cv);
+    ld_vec<true>(ub + e0, ubt);
+    ld_vec<true>(dest + e0, dv);
+    ld_vec<true>(mask + e0, mv);
+    if (m == 1) ld_vec_n<true, T, VPT>(a + e0, ar);
+    else if (m == 2) ld_vec_n<true, T, 2 * VPT>(a + 2 * e0, ar);
+  } else {
 #pragma unroll
-  for (int i = 0; i < VPT; ++i) {
-    const int col = gl + i * L;
-    const size_t e = (size_t)row * (size_t)w + (size_t)col;
-    mk[i] = row_ok && col < w && mask[e] != 0;
-    v[i] = kNeg;
-    ubv[i] = 0.0f;
-    if (mk[i]) {
-      v[i] = edge_u<T>(a, c, dest, lam, e, m, J, gam);
-      ubv[i] = to_float(ub[e]);
+    for (int i = 0; i < VPT; ++i) {
+      const bool in = i < nin;
+      cv[i] = in ? c[e0 + i] : from_float<T>(0.0f);
+      ubt[i] = in ? ub[e0 + i] : from_float<T>(0.0f);
+      dv[i] = in ? dest[e0 + i] : 0;
+      mv[i] = in ? mask[e0 + i] : 0;
     }
   }
 
-  const float tau = boxcut_tau<L, VPT>(v, ubv, mk, s_row, iters);
-
-  float cx = 0.0f, xsq = 0.0f;
+  float v[VPT], ubv[VPT];
 #pragma unroll
   for (int i = 0; i < VPT; ++i) {
-    const int col = gl + i * L;
-    if (row_ok && col < w) {
-      const size_t e = (size_t)row * (size_t)w + (size_t)col;
-      const float xi = mk[i] ? clip0(v[i] - tau, ubv[i]) : 0.0f;
-      x[e] = from_float<T>(xi);
-      if constexpr (kGvals) write_gvals<T>(a, g, e, m, mk[i], xi);
-      if (mk[i]) {
-        cx += __fmul_rn(to_float(c[e]), xi);
-        xsq += __fmul_rn(xi, xi);
+    v[i] = kNeg;
+    ubv[i] = 0.0f;
+    if (mv[i]) {
+      const int d = dv[i];
+      float atl;
+      if (avec && m == 1) {
+        atl = add_term(0.0f, ar[i], __ldg(lam + d));
+      } else if (avec) {
+        atl = add_term(0.0f, ar[2 * i], __ldg(lam + d));
+        atl = add_term(atl, ar[2 * i + 1], __ldg(lam + (size_t)J + d));
+      } else {
+        atl = 0.0f;
+        for (int k = 0; k < m; ++k)
+          atl = add_term(atl, a[(e0 + i) * (size_t)m + k],
+                         __ldg(lam + (size_t)k * J + d));
       }
+      v[i] = -__fadd_rn(atl, to_float(cv[i])) / gam;
+      ubv[i] = to_float(ubt[i]);
+    }
+  }
+
+  const float tau = boxcut_tau_chunk<L, VPT>(v, ubv, s_row, iters);
+
+  float cx = 0.0f, xsq = 0.0f;
+  T xo[VPT];
+#pragma unroll
+  for (int i = 0; i < VPT; ++i) {
+    const float xi = mv[i] ? clip0(v[i] - tau, ubv[i]) : 0.0f;
+    xo[i] = from_float<T>(xi);
+    if (mv[i]) {
+      cx += __fmul_rn(to_float(cv[i]), xi);
+      xsq += __fmul_rn(xi, xi);
+    }
+  }
+  if (vec) {
+    st_vec_n<T, VPT>(x + e0, xo);
+  } else {
+#pragma unroll
+    for (int i = 0; i < VPT; ++i)
+      if (i < nin) x[e0 + i] = xo[i];
+  }
+  if constexpr (kGvals) {
+    const T zero = from_float<T>(0.0f);
+    if (kHoldA && avec && m == 1) {
+      T go[VPT];
+#pragma unroll
+      for (int i = 0; i < VPT; ++i)
+        go[i] = mv[i] ? from_float<T>(mul_in_type(ar[i], xo[i])) : zero;
+      st_vec_n<T, VPT>(g + e0, go);
+    } else if (kHoldA && avec) {
+      T go[2 * VPT];
+#pragma unroll
+      for (int i = 0; i < VPT; ++i)
+#pragma unroll
+        for (int k = 0; k < 2; ++k)
+          go[2 * i + k] =
+              mv[i] ? from_float<T>(mul_in_type(ar[2 * i + k], xo[i])) : zero;
+      st_vec_n<T, 2 * VPT>(g + 2 * e0, go);
+    } else {
+#pragma unroll
+      for (int i = 0; i < VPT; ++i)
+        if (i < nin) write_gvals<T>(a, g, e0 + i, m, mv[i] != 0, to_float(xo[i]));
     }
   }
 
@@ -209,9 +296,33 @@ sum_partials_kernel(const float* __restrict__ partials, int nb,
   }
 }
 
-long long blocks_for(long long n, int w) {
+// The register path's layouts (L lanes a row, VPT values a lane): every
+// (L, VPT) that `kernels/dual_grad.py::row_layout` gives at its default of
+// 8 values a lane, for both types; and, float32 only, those it gives at 4
+// and 16 for rows up to 64 wide, which chip_smoke.py times on the main
+// path's slabs.
+#define REPRO_LAYOUTS(X)                                                   \
+  X(1, 1) X(1, 2) X(1, 4) X(1, 8) X(2, 8) X(4, 8) X(8, 8) X(16, 8)        \
+  X(32, 8) X(32, 16) X(32, 32)
+#define REPRO_SWEEP_LAYOUTS(X)                                             \
+  X(2, 4) X(4, 4) X(8, 4) X(16, 4) X(1, 16) X(2, 16) X(4, 16)
+
+bool layout_ok(int dtype, int w, int lanes, int vpt) {
+  if (w > kNarrowMaxWidth) return true;  // one block a row: no layout
+  if (lanes * vpt < w) return false;
+#define REPRO_HAS(L_, V_) \
+  if (lanes == L_ && vpt == V_) return true;
+  REPRO_LAYOUTS(REPRO_HAS)
+  if (dtype == kFloat32) {
+    REPRO_SWEEP_LAYOUTS(REPRO_HAS)
+  }
+#undef REPRO_HAS
+  return false;
+}
+
+long long blocks_for(long long n, int w, int lanes) {
   if (w > kNarrowMaxWidth) return n;  // one block a row
-  const long long rows_per_block = (long long)(kThreads / 32) * (32 / lanes_for(w));
+  const long long rows_per_block = (long long)(kThreads / 32) * (32 / lanes);
   return (n + rows_per_block - 1) / rows_per_block;
 }
 
@@ -220,7 +331,7 @@ struct Args {
   void *x, *g;
   float *partials, *rows;
   long long n;
-  int w, m, J, iters, nb;
+  int w, m, J, iters, lanes, vpt, nb;
   cudaStream_t stream;
 };
 
@@ -246,36 +357,26 @@ void launch_wide(const Args& p) {
 
 template <typename T, bool kGvals>
 void dispatch(const Args& p) {
-#define REPRO_ROWS(L_, V_) launch_rows<T, L_, V_, kGvals>(p)
   if (p.w > kNarrowMaxWidth) {
     launch_wide<T, kGvals>(p);
     return;
   }
-  const int L = lanes_for(p.w);
-  if (L < 32) {
-    switch (L) {
-      case 1: REPRO_ROWS(1, 1); break;
-      case 2: REPRO_ROWS(2, 1); break;
-      case 4: REPRO_ROWS(4, 1); break;
-      case 8: REPRO_ROWS(8, 1); break;
-      default: REPRO_ROWS(16, 1); break;
-    }
-    return;
+#define REPRO_ROWS(L_, V_)                    \
+  if (p.lanes == L_ && p.vpt == V_) {         \
+    launch_rows<T, L_, V_, kGvals>(p);        \
+    return;                                   \
   }
-  switch (vpt_for(p.w)) {
-    case 1: REPRO_ROWS(32, 1); break;
-    case 2: REPRO_ROWS(32, 2); break;
-    case 4: REPRO_ROWS(32, 4); break;
-    case 8: REPRO_ROWS(32, 8); break;
-    case 16: REPRO_ROWS(32, 16); break;
-    default: REPRO_ROWS(32, 32); break;
+  REPRO_LAYOUTS(REPRO_ROWS)
+  if constexpr (std::is_same_v<T, float>) {
+    REPRO_SWEEP_LAYOUTS(REPRO_ROWS)
   }
 #undef REPRO_ROWS
 }
 
 int launch(int dtype, Args p, void* cx, void* xsq, void* scratch) {
   if (p.n <= 0 || p.w <= 0 || p.m <= 0) return -1;
-  const long long nb = blocks_for(p.n, p.w);
+  if (!layout_ok(dtype, p.w, p.lanes, p.vpt)) return -1;
+  const long long nb = blocks_for(p.n, p.w, p.lanes);
   if (nb > 0x7fffffffLL) return -1;
   p.nb = (int)nb;
   p.partials = (float*)scratch;
@@ -300,25 +401,28 @@ int launch(int dtype, Args p, void* cx, void* xsq, void* scratch) {
 extern "C" {
 
 // Length of the float scratch vector `dual_x_launch` / `dual_grad_launch`
-// need: the per-block partials, and the global row buffer of rows too
-// wide for shared memory.
-long long dual_x_scratch(long long n, int w) {
+// need for a slab of n rows of width w at `lanes` lanes a row: the
+// per-block partials, and the global row buffer of rows too wide for
+// shared memory.
+long long dual_x_scratch(long long n, int w, int lanes) {
   using namespace repro_torch;
-  long long len = 2 * blocks_for(n, w);
+  if (lanes <= 0 || lanes > 32) return -1;
+  long long len = 2 * blocks_for(n, w, lanes);
   if (w > kNarrowMaxWidth && !wide_in_smem(w)) len += 2 * n * (long long)w;
   return len;
 }
 
-// K1: launches the slab kernel and the partial-sum pass on `stream`.
-// Returns cudaGetLastError() (0 on success), or -1 for a shape or type it
-// does not take.
+// K1: launches the slab kernel and the partial-sum pass on `stream`, rows
+// up to 1,024 wide at the layout (lanes, vpt) (ignored for wider rows).
+// Returns cudaGetLastError() (0 on success), or -1 for a shape, layout or
+// type it does not take.
 int dual_x_launch(int dtype, const void* a, const void* c, const void* dest,
                   const void* mask, const void* ub, const void* s,
                   const void* lam, const void* gamma, void* x,
                   void* scratch, void* cx, void* xsq, long long n, int w,
-                  int m, int J, int iters, void* stream) {
+                  int m, int J, int iters, int lanes, int vpt, void* stream) {
   repro_torch::Args p{a, c, dest, mask, ub, s, lam, gamma, x, nullptr,
-                      nullptr, nullptr, n, w, m, J, iters, 0,
+                      nullptr, nullptr, n, w, m, J, iters, lanes, vpt, 0,
                       (cudaStream_t)stream};
   return repro_torch::launch(dtype, p, cx, xsq, scratch);
 }
@@ -330,10 +434,10 @@ int dual_grad_launch(int dtype, const void* a, const void* c,
                      const void* s, const void* lam, const void* gamma,
                      void* x, void* gvals, void* scratch, void* cx,
                      void* xsq, long long n, int w, int m, int J, int iters,
-                     void* stream) {
+                     int lanes, int vpt, void* stream) {
   if (gvals == nullptr) return -1;
   repro_torch::Args p{a, c, dest, mask, ub, s, lam, gamma, x, gvals,
-                      nullptr, nullptr, n, w, m, J, iters, 0,
+                      nullptr, nullptr, n, w, m, J, iters, lanes, vpt, 0,
                       (cudaStream_t)stream};
   return repro_torch::launch(dtype, p, cx, xsq, scratch);
 }

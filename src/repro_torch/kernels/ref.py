@@ -4,7 +4,10 @@
 Each function repeats its kernel's arithmetic with ordinary tensor ops.
 The wrappers in `dual_grad.py`, `ax_reduce.py` and `proj.py` run them for
 tensors on the CPU; `chip_smoke.py` and the tests hold each kernel against them on
-the card.  Only the order of the floating-point sums differs.
+the card.  Only the order of the floating-point sums differs, except in
+the kernel-order versions (`dual_x_lanes_ref`, `dual_grad_lanes_ref`,
+`ax_items_ref`), which repeat the kernels' order too and equal them bit
+for bit in float32.
 """
 from __future__ import annotations
 
@@ -68,6 +71,158 @@ def dual_grad_ref(a_vals, c_vals, dest_idx, mask, ub, s, lam, gamma,
     Returns (x, gvals, c_x, x_sq)."""
     x, c_x, x_sq = dual_x_ref(a_vals, c_vals, dest_idx, mask, ub, s, lam,
                               gamma, iters)
+    prod = a_vals * x.to(a_vals.dtype)[..., None]
+    gvals = torch.where(mask[..., None], prod, torch.zeros_like(prod))
+    return x, gvals, c_x, x_sq
+
+
+KNEG = -1e30          # the kernels' fill for entries a row does not own
+WARP, BLOCK_WARPS, PARTIAL_THREADS = 32, 8, 1024   # dual_x.cu's launch shape
+
+
+def _clip(t, ub):
+    """clip(t, 0, ub) as K1 and K3 compute it, fminf(fmaxf(t, 0), ub): a
+    NaN operand is dropped, so a NaN t gives 0 and a NaN ub no bound."""
+    return torch.fmin(torch.fmax(t, torch.zeros_like(t)), ub)
+
+
+def _chunk_sums(t, layout):
+    """(rows, L) sums of t (rows, L·VPT): lane l's chunk of VPT, in order
+    from 0, as each lane of K1 and K3 sums."""
+    L, V = layout
+    t = t.reshape(t.shape[0], L, V)
+    acc = torch.zeros(t.shape[:2], dtype=torch.float32, device=t.device)
+    for i in range(V):
+        acc = acc + t[:, :, i]
+    return acc
+
+
+def _butterfly(acc):
+    """The xor butterfly of `group_sum` over the lanes (columns) of acc;
+    every lane ends with the same sum, returned."""
+    lane = torch.arange(acc.shape[1], device=acc.device)
+    off = acc.shape[1] // 2
+    while off:
+        acc = acc + acc[:, lane ^ off]
+        off //= 2
+    return acc[:, 0]
+
+
+def _lane_sums(t, layout):
+    """Row sums of t (rows, L·VPT) in the order of K1's and K3's lanes:
+    each lane sums its chunk, then the butterfly over the row's L lanes."""
+    return _butterfly(_chunk_sums(t, layout))
+
+
+def lanes_u(a_vals, c_vals, dest_idx, mask, ub, lam, gamma, layout):
+    """(v, ub) of a slab as K1 and K3 hold them at `layout` (L, VPT):
+    float32 (n, L·VPT), v = u = −(Σ_k a_k λ_k[dest] + c)/γ in the kernels'
+    order at real entries, KNEG (and ub 0) on padding and past the
+    width."""
+    n, w, m = a_vals.shape
+    dev = a_vals.device
+    d = torch.where(mask, dest_idx, torch.zeros_like(dest_idx)).long()
+    atl = torch.zeros((n, w), dtype=torch.float32, device=dev)
+    for k in range(m):
+        atl = atl + a_vals[:, :, k].float() * lam[k][d]
+    u = -(atl + c_vals.float()) / gamma.float()
+    P = layout[0] * layout[1]
+    v = torch.full((n, P), KNEG, dtype=torch.float32, device=dev)
+    ubp = torch.zeros((n, P), dtype=torch.float32, device=dev)
+    v[:, :w] = torch.where(mask, u, torch.full_like(u, KNEG))
+    ubp[:, :w] = torch.where(mask, ub.float(), torch.zeros_like(u))
+    return v, ubp
+
+
+def bisect_lanes_ref(v, ub, s, iters: int, layout, early_exit: bool = True):
+    """τ of each row of (v, ub) (n, L·VPT) and the steps each row ran, in
+    the order of K1's and K3's sums (`common.cuh::boxcut_tau_chunk`).
+
+    With `early_exit`, a row with f0 <= s runs no step, and a row stops
+    after the step in which mid == lo or mid == hi, once its update is
+    applied; otherwise every row runs all `iters` steps.  Both give the
+    same τ bit for bit.  Maxima and clips drop NaN, as the kernels'
+    fmaxf and fminf do.  Returns (τ (n,) float32, steps (n,) int64)."""
+    s = s.float()
+    f0 = _lane_sums(_clip(v, ub), layout)
+    need = f0 > s
+    hi = torch.where(v.isnan(), torch.full_like(v, KNEG), v).amax(
+        dim=1).clamp_min(KNEG)
+    lo = torch.minimum(torch.zeros_like(hi), hi)
+    done = ~need if early_exit else torch.zeros_like(need)
+    steps = torch.zeros(v.shape[0], dtype=torch.int64, device=v.device)
+    for _ in range(iters):
+        live = ~done
+        if early_exit and not bool(live.any()):
+            break
+        mid = 0.5 * (lo + hi)
+        big = _lane_sums(_clip(v - mid[:, None], ub), layout) > s
+        if early_exit:
+            done = done | (mid == lo) | (mid == hi)
+        lo = torch.where(live & big, mid, lo)
+        hi = torch.where(live & ~big, mid, hi)
+        steps += live
+    tau = torch.where(need, 0.5 * (lo + hi), torch.zeros_like(lo))
+    return tau, steps
+
+
+def _block_order_sum(t, mask, layout):
+    """Σ of t (n, w) over the real entries in dual_x.cu's order: each lane
+    over its chunk, the warp's xor butterfly over its 32 lanes (32/L rows),
+    the block's 8 warp sums in order, then the one-block pass over the
+    block partials (1,024 threads, each striding over the partials, then a
+    halving tree)."""
+    n, w = t.shape
+    L, V = layout
+    rows = BLOCK_WARPS * (WARP // L)               # rows a block
+    nb = -(-n // rows)
+    dev = t.device
+    full = torch.zeros((nb * rows, L * V), dtype=torch.float32, device=dev)
+    full[:n, :w] = torch.where(mask, t, torch.zeros_like(t))
+    lanes = _chunk_sums(full, layout).reshape(-1, WARP)   # a warp a row
+    warps = _butterfly(lanes).reshape(nb, BLOCK_WARPS)
+    part = torch.zeros(nb, dtype=torch.float32, device=dev)
+    for i in range(BLOCK_WARPS):
+        part = part + warps[:, i]
+    T = PARTIAL_THREADS
+    q = torch.zeros(-(-nb // T) * T, dtype=torch.float32, device=dev)
+    q[:nb] = part
+    q = q.reshape(-1, T)
+    tot = torch.zeros(T, dtype=torch.float32, device=dev)
+    for r in range(q.shape[0]):
+        tot = tot + q[r]
+    half = T // 2
+    while half:
+        tot = tot[:half] + tot[half:2 * half]
+        half //= 2
+    return tot[0]
+
+
+def dual_x_lanes_ref(a_vals, c_vals, dest_idx, mask, ub, s, lam, gamma,
+                     iters: int, layout):
+    """`dual_x_ref` in the order of K1's sums at `layout` (L, VPT) =
+    `dual_grad.row_layout(w)` (rows up to 1,024 wide), with the fixed
+    count of bisection steps: equal to K1 bit for bit in float32.
+    Returns (x in the slab's dtype, c_x, x_sq)."""
+    if layout is None:
+        raise ValueError("dual_x_lanes_ref: rows wider than 1,024 have no "
+                         "lane layout")
+    w = c_vals.shape[1]
+    v, ubp = lanes_u(a_vals, c_vals, dest_idx, mask, ub, lam, gamma, layout)
+    tau, _ = bisect_lanes_ref(v, ubp, s, iters, layout, early_exit=False)
+    x = torch.where(mask, _clip(v[:, :w] - tau[:, None], ubp[:, :w]),
+                    torch.zeros_like(tau)[:, None])
+    c_x = _block_order_sum(c_vals.float() * x, mask, layout)
+    x_sq = _block_order_sum(x * x, mask, layout)
+    return x.to(c_vals.dtype), c_x, x_sq
+
+
+def dual_grad_lanes_ref(a_vals, c_vals, dest_idx, mask, ub, s, lam, gamma,
+                        iters: int, layout):
+    """`dual_x_lanes_ref` plus gvals = a ⊙ x in a's dtype, 0 on padding:
+    equal to K3 bit for bit in float32.  Returns (x, gvals, c_x, x_sq)."""
+    x, c_x, x_sq = dual_x_lanes_ref(a_vals, c_vals, dest_idx, mask, ub, s,
+                                    lam, gamma, iters, layout)
     prod = a_vals * x.to(a_vals.dtype)[..., None]
     gvals = torch.where(mask[..., None], prod, torch.zeros_like(prod))
     return x, gvals, c_x, x_sq

@@ -22,7 +22,8 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels.ax_reduce import (ax_reduce_bucket, ax_reduce_bucket_x,
                                            ax_reduce_plan, ax_reduce_plan_x,
                                            plan_work)
-from repro_torch.kernels.dual_grad import dual_grad_slab, dual_x_slab
+from repro_torch.kernels.dual_grad import (dual_grad_slab, dual_x_slab,
+                                           row_layout)
 from repro_torch.kernels.proj import proj_boxcut
 
 pytestmark = pytest.mark.cuda
@@ -120,6 +121,93 @@ def test_dual_grad_kernel_matches_plain_and_dual_x(dev, w, m, dtype):
     np.testing.assert_allclose(float(xsq), float(xsqr), rtol=rtol, atol=1e-6)
 
 
+def _hard_slab(rng, n, w, m, J):
+    """A slab with non-prefix masks, all-padding rows, rows whose f0 <= s
+    (they run no bisection step) and rows that need the loop."""
+    mask = ((np.arange(w)[None, :] < rng.integers(0, w + 1, n)[:, None])
+            & (rng.random((n, w)) < 0.8))
+    mask[rng.random(n) < 0.05] = False
+    a = np.where(mask[..., None], rng.lognormal(0, 0.5, (n, w, m)), 0)
+    c = np.where(mask, -rng.lognormal(0, 0.5, (n, w)), 0)
+    dest = np.where(mask, rng.integers(0, J, (n, w)), 0)
+    ub = np.where(mask, rng.uniform(0.5, 1.0, (n, w)), 0)
+    s = np.where(rng.random(n) < 0.3, 1e6, rng.uniform(0.5, 4.0, n))
+    lam = rng.uniform(0, 2.0, (m, J))
+    f = np.float32
+    return (a.astype(f), c.astype(f), dest.astype(np.int32), mask,
+            ub.astype(f), s.astype(f), lam.astype(f))
+
+
+@pytest.mark.parametrize("w", [w for w in WIDTHS if w <= 1024]
+                         + [3, 24, 100, 1000])
+@pytest.mark.parametrize("m", [1, 2])
+def test_dual_x_kernels_equal_lanes_ref(dev, w, m):
+    """K1 and K3 in float32 equal their kernel-order plain version
+    `ref.dual_x_lanes_ref` / `dual_grad_lanes_ref` bit for bit (the early
+    exit gives the fixed count's τ), at γ = 0.001; K3's x, cᵀx, ‖x‖² are
+    K1's; two runs give the same bits.  Widths that are not a multiple of
+    VPT (3, 100, 1000) take the kernels' value-by-value loads."""
+    rng = np.random.default_rng(w * 13 + m)
+    n, J = _rows(w), 97
+    a, c, dest, mask, ub, s, lam = (torch.from_numpy(v).to(dev) for v in
+                                    _hard_slab(rng, n, w, m, J))
+    gamma = torch.full((), 0.001, device=dev)
+    lay = row_layout(w)
+    xr, gr, cxr, xsqr = ref.dual_grad_lanes_ref(a, c, dest, mask, ub, s, lam,
+                                                gamma, 40, lay)
+    runs = [dual_x_slab(a, c, dest, mask, ub, s, lam, gamma)
+            for _ in range(2)]
+    for u, v in zip(*runs):
+        assert torch.equal(u, v)
+    x, cx, xsq = runs[0]
+    assert torch.equal(x, xr) and torch.equal(cx, cxr)
+    assert torch.equal(xsq, xsqr)
+    x3, g3, cx3, xsq3 = dual_grad_slab(a, c, dest, mask, ub, s, lam, gamma)
+    assert torch.equal(x3, x) and torch.equal(cx3, cx)
+    assert torch.equal(xsq3, xsq) and torch.equal(g3, gr)
+
+
+@pytest.mark.parametrize("w", [8, 32, 100])
+def test_dual_x_kernels_drop_nan_as_lanes_ref(dev, w):
+    """NaN multipliers at a few destinations make NaN entries of u in many
+    rows: K1 and K3 drop them as `dual_x_lanes_ref` does (x 0 there, the
+    row's τ from its other entries), bit for bit."""
+    rng = np.random.default_rng(w)
+    n, J = _rows(w), 97
+    a, c, dest, mask, ub, s, lam = (torch.from_numpy(v).to(dev) for v in
+                                    _hard_slab(rng, n, w, 2, J))
+    lam[0, :5] = float("nan")
+    lam[1, 90:] = float("nan")
+    gamma = torch.full((), 0.001, device=dev)
+    want = ref.dual_grad_lanes_ref(a, c, dest, mask, ub, s, lam, gamma, 40,
+                                   row_layout(w))
+    got = dual_grad_slab(a, c, dest, mask, ub, s, lam, gamma)
+    got1 = dual_x_slab(a, c, dest, mask, ub, s, lam, gamma)
+    assert bool((mask & (dest < 5)).any())
+    for u, v in zip(got, want):
+        torch.testing.assert_close(u, v, rtol=0, atol=0, equal_nan=True)
+    for u, v in zip(got1, (want[0], want[2], want[3])):
+        torch.testing.assert_close(u, v, rtol=0, atol=0, equal_nan=True)
+    assert not got[0].isnan().any()
+
+
+def test_dual_x_refuses_misaligned_out(dev):
+    """The vector stores need x's rows 16-byte aligned: an `out` one float
+    off is refused, not written."""
+    rng = np.random.default_rng(4)
+    args = [torch.from_numpy(v).to(dev) for v in _slab(rng, 64, 32, 1, 50)]
+    gamma = torch.full((), 0.01, device=dev)
+    buf = torch.full((64 * 32 + 1,), 7.0, device=dev)
+    before = dual_x_slab.launches
+    with pytest.raises(ValueError, match="aligned"):
+        dual_x_slab(*args, gamma, out=buf[1:].view(64, 32))
+    with pytest.raises(ValueError, match="aligned"):
+        dual_grad_slab(*args, gamma, out=buf[1:].view(64, 32))
+    assert dual_x_slab.launches == before and (buf == 7.0).all()
+    x, _, _ = dual_x_slab(*args, gamma, out=buf[:-1].view(64, 32))
+    assert x.data_ptr() == buf.data_ptr()
+
+
 @pytest.mark.parametrize("w", [4, 16, 64, 1024, 2048, 8192, 32768])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_proj_kernel_matches_plain(dev, w, dtype):
@@ -144,8 +232,9 @@ def test_proj_kernel_matches_plain(dev, w, dtype):
 
 @pytest.mark.parametrize("w", [64, 1024, 2048, 8192])
 def test_proj_of_u_gives_dual_x(dev, w):
-    """K5 fed a slab's pre-projection u gives K1's x (the same bisection
-    on the same lanes)."""
+    """K5 fed a slab's pre-projection u gives K1's x to atol 1e-4 (the
+    same projection; K5 sums a row in its own lanes' order, K1 in
+    contiguous chunks with an early exit)."""
     rng = np.random.default_rng(w + 9)
     n, J = _rows(w), 97
     a, c, dest, mask, ub, s, lam = (torch.from_numpy(v).to(dev) for v in
@@ -429,6 +518,73 @@ def test_solve_on_card_matches_cpu(dev):
     cpu, gpu = out["cpu"], out["cuda"]
     assert cpu[1] == 0 and cpu[2] == 0
     assert gpu[1] > 0 and gpu[2] > 0
+    assert gpu[0].stop_reason == cpu[0].stop_reason
+    g_cpu = float(cpu[0].stats.dual_obj[-1])
+    g_gpu = float(gpu[0].stats.dual_obj[-1])
+    assert abs(g_gpu - g_cpu) <= 1e-5 * abs(g_cpu)
+
+
+# min_width = 1: slabs of 17, 33, 72 and 25 rows of width 1, 2, 4 and 8,
+# so each later slab's slice of the objective's flat buffers starts past a
+# gap that keeps it 16-byte aligned
+ODD_SPEC = InstanceSpec(num_sources=150, num_destinations=23,
+                        avg_nnz_per_row=3, seed=5, min_width=1)
+
+
+def _odd_objective(d, mode, dtype):
+    from repro_torch.convert import lp_to_numpy, plan_to_torch
+    from repro_torch.core.instance import build_ax_plan
+    from repro_torch.core.types import LPData, Slab
+    lp, _ = precondition(lp_to_torch(generate(ODD_SPEC), d), row_norm=True)
+    plan = None
+    if mode.startswith("aligned"):
+        plan = plan_to_torch(build_ax_plan(
+            lp_to_numpy(lp), carry_values=mode == "aligned"), d)
+        plan = plan._replace(buckets=tuple(
+            b._replace(a_dm=None if b.a_dm is None else b.a_dm.to(dtype))
+            for b in plan.buckets))
+    lp = LPData(slabs=tuple(
+        Slab(*(t.to(dtype) if t.is_floating_point() else t for t in s))
+        for s in lp.slabs), b=lp.b)
+    return MatchingObjective(lp, ax_mode=mode, ax_plan=plan)
+
+
+@pytest.mark.parametrize("mode", ["aligned", "aligned_gvals", "scatter",
+                                  "sorted"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_odd_slab_rows_on_card(dev, mode, dtype):
+    """Slabs whose sizes leave the next slab's slice of the flat buffers
+    off a 16-byte boundary: the objective pads the slices, the kernels'
+    vector stores run, and one evaluation matches the CPU's."""
+    out = {}
+    for d in ("cpu", dev):
+        obj = _odd_objective(d, mode, dtype)
+        sizes = [s.n * s.width for s in obj.lp.slabs]
+        assert obj._offsets != list(np.cumsum([0] + sizes[:-1]))
+        lam = torch.from_numpy(np.random.default_rng(0).uniform(
+            0, 1, obj.dual_shape).astype(np.float32)).to(d)
+        out[str(d)] = obj.calculate(lam, torch.full((), 0.01, device=d))
+    (gc, dc, _), (g1, d1, _) = out["cpu"], out["cuda"]
+    tol = 1e-5 if dtype == torch.float32 else 5e-2
+    np.testing.assert_allclose(float(g1), float(gc), rtol=tol)
+    np.testing.assert_allclose(d1.cpu().numpy(), dc.numpy(), rtol=tol,
+                               atol=tol * max(1.0, float(dc.abs().max())))
+
+
+def test_odd_slab_rows_solve_on_card(dev):
+    """A tolerance-terminated solve over those slabs runs K1 and K2 on the
+    card and lands where the CPU's plain versions land."""
+    cfg = SolveConfig(iterations=1500, gamma=0.01, max_step=0.1,
+                      gamma_init=0.16, adaptive_continuation=True)
+    crit = StoppingCriteria(tol_rel_dual=1e-6, check_every=25)
+    out = {}
+    for d in ("cpu", dev):
+        obj = _odd_objective(d, "aligned", torch.float32)
+        k1 = dual_x_slab.launches
+        res = Maximizer(cfg).maximize(obj, criteria=crit)
+        out[str(d)] = (res, dual_x_slab.launches - k1)
+    cpu, gpu = out["cpu"], out["cuda"]
+    assert cpu[1] == 0 and gpu[1] > 0
     assert gpu[0].stop_reason == cpu[0].stop_reason
     g_cpu = float(cpu[0].stats.dual_obj[-1])
     g_gpu = float(gpu[0].stats.dual_obj[-1])

@@ -7,7 +7,8 @@ absolute 1e-5·max(1, |b|) — float32 sums in another order); primal x at
 atol 1e-5 where |u| = |aᵀλ + c|/γ stays of order 10² (γ = 0.16: x is
 resolved only to an ulp of u, 6e-5 at γ = 0.01 and |u| ~ 10³);
 primal_rows equals the matching rows of the port's own primal bit for bit
-(every operation is row-local).
+(every operation is row-local).  Each slab's slice of the flat buffers
+starts on a 16-byte boundary, with gaps where the slabs' sizes leave them.
 """
 import jax
 import jax.numpy as jnp
@@ -26,7 +27,11 @@ from repro_torch.core import precondition as tprecondition
 SPECS = [dict(num_sources=2000, num_destinations=100, avg_nnz_per_row=8,
               seed=42),
          dict(num_sources=120, num_destinations=19, avg_nnz_per_row=9,
-              seed=11, num_families=2)]
+              seed=11, num_families=2),
+         # slabs of 17 and 33 rows of width 1 and 2: the flat buffers get
+         # gaps before the later slabs (test_slab_slices_aligned)
+         dict(num_sources=150, num_destinations=23, avg_nnz_per_row=3,
+              seed=5, min_width=1)]
 
 
 @pytest.fixture(scope="module", params=[
@@ -96,3 +101,19 @@ def test_unknown_ax_mode_raises(pair):
     assert obj_t.ax_mode in ("aligned", "aligned_gvals", "sorted", "scatter")
     with pytest.raises(ValueError):
         TObjective(obj_t.lp, ax_mode="bogus")
+
+
+def test_slab_slices_aligned(pair):
+    """Each slab's slice of the flat x (and gvals) buffer starts on a
+    16-byte boundary, as the card's sweep kernels need; where the slab
+    sizes leave gaps, the plan and the sorted order follow them, so the
+    comparisons above run through the gaps too."""
+    _, obj_t = pair
+    size = obj_t._xbuf.element_size()
+    assert all(o * size % 16 == 0 for o in obj_t._offsets)
+    sizes = [s.n * s.width for s in obj_t.lp.slabs]
+    ends = [o + n for o, n in zip(obj_t._offsets, sizes)]
+    assert all(e <= o for e, o in zip(ends, obj_t._offsets[1:]))
+    assert obj_t._xbuf.shape[0] == ends[-1]
+    if min(s.width for s in obj_t.lp.slabs) < 4:
+        assert obj_t._offsets != list(np.cumsum([0] + sizes[:-1]))

@@ -41,25 +41,40 @@ nothing of JAX or of the JAX package.  Phases, each failing loudly:
               equal to K2's Ax bit for bit) and K5 against their plain
               versions at the main path's shapes, timed as in 4 (K5
               through its entry point `ops.proj_boxcut`, on every slab's
-              pre-projection u, which it must map to K1's x within 1e-4);
-              then the same instance with --ax-mode scatter
-  6. wide     3,000 x 5,000 at nu = 1000 (a 2,048-wide slab) through the
-              CLI entry point: 50 iterations against the reference CLI's
-              dual, then to tolerance with a valid certificate; K1 on its
-              3 x 2,048 slab timed beside its plain version and bound; K1,
-              K3, K5 against their plain versions at widths 2,048 and 8,192
+              pre-projection u, which it must map to K1's x and to its
+              kernel-order plain version bit for bit; its steps, and its
+              bound at each row's own steps); then the same instance with
+              --ax-mode scatter
+  6. wide     rows wider than 1,024 (one block a row): 3,000 x 5,000 at
+              nu = 1000 (a 2,048-wide slab) through the CLI entry point,
+              50 iterations against the reference CLI's dual, then to
+              tolerance with a valid certificate; K1, K3, K5 on its 3 x
+              2,048 slab and on a synthetic 8,192 x 2,048 throughput slab,
+              timed beside their plain versions and bounds, with the wide
+              routine's steps; K1, K3, K5 bit for bit against their
+              block-order plain versions there and at widths 2,048,
+              8,192, 16,384 and 32,768 (chunks in registers, shared
+              memory, global scratch); then each of the three storages
+              of a row's chunks timed against the others at widths
+              2,048, 4,096 and 8,192, on 2^24 entries and on 3 rows
   7. parity   the reference's recorded perf_lp/tol_agd run (2000 x 1000,
               nu = 4, seed 42) in each ax mode: converged, final dual
               within 1e-4 relative of -2340.3547, stopped within one check
-              of where the reference's own ax modes stop; aligned twice and
-              sorted twice bit-identical, aligned_gvals bit-identical to
-              aligned; then GlobalCountObjective (count row normalized)
+              of where the reference's own ax modes stop; aligned, scatter
+              and sorted twice each bit-identical, aligned_gvals
+              bit-identical to aligned; then GlobalCountObjective (count row normalized)
               with the count at 90 % of the unconstrained sum of x, which
               must converge and bind
 
 The last three lines of standard output are the card's name and power
 limit, the kernels' JSON record, and {"ok": true, "device": {...}}.  Exits
 non-zero, printing no result, when there is no card.
+
+  python3 chip_smoke.py --kernel-times DIR
+
+only times K1, K3 and K5 of the checkout unpacked at DIR (another commit,
+say) on phase 6's wide slabs, and prints one JSON line: run it for two
+commits in turn, in one session on one card, to compare them.
 """
 import functools
 import json
@@ -72,7 +87,6 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-sys.path.insert(0, os.path.join(ROOT, "src"))
 
 DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
@@ -101,6 +115,17 @@ TABLE_SWEEP = ((2048, None), (1024, None), (4096, None), (1024, 1 << 22),
 # K1's and K3's values a lane, timed on the main path's slabs (the
 # float32 kernels of the swept layouts cover rows up to 64 wide)
 VPT_SWEEP = (4, 8, 16)
+# widths at which K1, K3, K5's wide path is held bit for bit (chunks in
+# registers, registers, shared memory, global scratch), and the rows and
+# width of its throughput slab
+WIDE_BITS = (2048, 8192, 16384, 32768)
+THROUGHPUT_SLAB = (8192, 2048)
+# widths at which phase 6 times the wide path's chunks in each storage
+# (registers, shared memory, global scratch) on a slab of 2^24 entries
+# and on one of 3 rows
+STORE_WIDTHS = (2048, 4096, 8192)
+STORE_ENTRIES = 1 << 24
+STORE_NAMES = ("registers", "shared", "global")
 WRAPPERS = {}    # kernel wrapper name -> wrapper, with its launch counter
 
 
@@ -157,6 +182,36 @@ def ptxas_dual_x(log_text):
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             cur, spill = _dual_x_instance(m.group(1)), 0
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            out[cur] = (int(m.group(1)), spill)
+            cur = None
+    return out
+
+
+def ptxas_wide(log_text):
+    """{"K1|K3|K5 type layout": (registers, spill store bytes)} of the
+    wide kernels (chunk C, or "mem" for staged rows) and K5's register
+    path (L x VPT), from nvcc's -Xptxas -v output."""
+    pat = re.compile(r"(dual_x_wide_kernel|proj_wide_kernel|proj_rows_kernel)"
+                     r"I(f|13__nv_bfloat16)Li(\d+)E(?:Li(\d+)E)?(?:Lb([01])E)?")
+    out, cur, spill = {}, None, 0
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = pat.search(m.group(1))
+            cur, spill = None, 0
+            if k:
+                kind = ("K3" if k.group(5) == "1" else "K1") if k.group(
+                    1).startswith("dual") else "K5"
+                dt = "f32" if k.group(2) == "f" else "bf16"
+                lay = (f"{k.group(3)}x{k.group(4)}" if k.group(4)
+                       else f"C={k.group(3)}" if k.group(3) != "0" else "mem")
+                cur = f"{kind} {dt} {lay}"
             continue
         m = re.search(r"(\d+) bytes spill stores", line)
         if m:
@@ -230,33 +285,62 @@ def sm_clock_mhz():
     return float(out[0]), float(out[1])
 
 
-def bisection_steps(slabs, lam, g, iters):
-    """Per slab, from the plain early-exit bisection on the card (the
-    kernels' order of the sums): rows, rows with f0 > s, the steps each
-    such row ran to a fixed bracket, and the mean steps a warp runs (the
-    largest of its rows', the warp looping while any of them is not
-    done)."""
+def steps_stats(width, n, v, ubp, s, lay, iters, mask):
+    """One slab's bisection, from the plain early-exit version on the card
+    in the kernels' order of the sums, `v`, `ubp` its rows as the kernels
+    hold them at layout `lay` (L lanes a row, or a block of 256 threads
+    past 1,024), `mask` its real entries: rows, real entries, real
+    entries x the steps of their row (the work of the function's loop:
+    padding and columns past the width add exactly +0 and are not
+    counted), rows with f0 > s, the steps each such row ran to a fixed
+    bracket, and the mean steps a warp (a block past 1,024) runs, the
+    largest of its rows', the warp looping while any is not done."""
     import torch
     from repro_torch.kernels import ref
-    from repro_torch.kernels.dual_grad import row_layout
+    if lay[0] > 32:
+        _, steps = ref.bisect_block_ref(v, ubp, s, iters)
+        groups = 1
+    else:
+        _, steps = ref.bisect_lanes_ref(v, ubp, s, iters, lay)
+        groups = 32 // lay[0]
+    warp = torch.nn.functional.pad(steps, (0, (-n) % groups))
+    warp = warp.reshape(-1, groups).amax(dim=1)
+    ran = steps[steps > 0].double()
+    real = mask.sum(dim=1, dtype=torch.int64)
+    return {"width": width, "rows": n, "entries": int(real.sum()),
+            "entry_steps": int((real * steps).sum()),
+            "need": int((steps > 0).sum()),
+            "mean": float(ran.mean()) if ran.numel() else 0.0,
+            "max": int(steps.max()), "warps": warp.numel(),
+            "warp_mean": float(warp.double().mean())}
+
+
+def bisection_steps(slabs, lam, g, iters):
+    """`steps_stats` of K1's (and K3's) bisection on every slab at lam."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.dual_grad import kernel_layout
     stats = []
     for s in slabs:
-        lay = row_layout(s.width)
+        lay = kernel_layout(s.width)
         v, ubp = ref.lanes_u(s.a_vals, s.c_vals, s.dest_idx, s.mask, s.ub,
                              lam, g, lay)
-        _, steps = ref.bisect_lanes_ref(v, ubp, s.s, iters, lay)
+        stats.append(steps_stats(s.width, s.n, v, ubp, s.s, lay, iters,
+                                 s.mask))
         del v, ubp
-        groups = 32 // lay[0]
-        warp = torch.nn.functional.pad(steps, (0, (-s.n) % groups))
-        warp = warp.reshape(-1, groups).amax(dim=1)
-        ran = steps[steps > 0].double()
-        stats.append({"width": s.width, "rows": s.n,
-                      "entries": s.n * lay[0] * lay[1],
-                      "entry_steps": int(steps.sum()) * lay[0] * lay[1],
-                      "need": int((steps > 0).sum()),
-                      "mean": float(ran.mean()) if ran.numel() else 0.0,
-                      "max": int(steps.max()), "warps": warp.numel(),
-                      "warp_mean": float(warp.double().mean())})
+    return stats
+
+
+def proj_steps(slabs, us, iters):
+    """`steps_stats` of K5's bisection on every slab's u."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.dual_grad import kernel_layout
+    stats = []
+    for s, u in zip(slabs, us):
+        lay = kernel_layout(s.width)
+        v, ubp = ref.pad_rows(u, s.ub, s.mask, lay[0] * lay[1])
+        stats.append(steps_stats(s.width, s.n, v, ubp, s.s, lay, iters,
+                                 s.mask))
+        del v, ubp
     return stats
 
 
@@ -299,31 +383,52 @@ def lockstep_issue(stats, gvals, iters):
 
 
 # float32 operations an entry of K1's function, each one lane-operation
-# (an FMA counts once): a bisection step sums clip(v − mid, 0, ub) over
-# every padded entry of the row (subtract, max, min, add); outside the
-# loop f0 and max v over every padded entry (max, min, add, max), and at
-# each real edge u = −(aᵀλ + c)/γ (m multiply-adds, an add, a scale),
+# (an FMA counts once), counted at real entries only (padding and columns
+# past the width add exactly +0, which the function does not need): a
+# bisection step sums clip(v − mid, 0, ub) over the row's real entries
+# (subtract, max, min, add); outside the loop f0 and max v (max, min,
+# add, max), u = −(aᵀλ + c)/γ (m multiply-adds, an add, a scale),
 # x = clip(v − τ, 0, ub) (3) and the c·x and x·x partials (2).  K3 adds
 # m multiplies an edge for gvals.
-OPS_A_STEP, OPS_PADDED, OPS_REAL = 4, 4, 7
+OPS_A_STEP, OPS_ENTRY, OPS_REAL = 4, 4, 7
 
 
-def issue_bound(stats, real, m, gvals, iters):
-    """The bisection's least issue time in ms: the operations K1's (K3's)
+# float32 operations at a real edge of K5's function: x = clip(v − τ, 0, ub)
+OPS_X = 3
+
+
+def real_ops(real, m, gvals):
+    """The float32 operations K1's (K3's) function does at its `real`
+    edges outside the loop."""
+    return real * (OPS_REAL + m + (m if gvals else 0))
+
+
+def issue_bound(stats, ops_real, iters):
+    """The bisection's least issue time in ms: the operations the
     function needs on these inputs, each row's own steps to a fixed
-    bracket (`stats`, from `bisection_steps`) over its padded entries,
-    at 128 float32 lanes a clock an SM at the card's maximum SM clock
-    (the 67 TFLOP/s of an H100 counts an FMA as 2).  Returns (ms, ms at
-    `iters` steps a row, operations, SMs, MHz)."""
+    bracket (`stats`, from `steps_stats`) over its real entries, f0 and
+    max v there, plus `ops_real` at them, at 128 float32 lanes a clock an
+    SM at the card's maximum SM clock (the 67 TFLOP/s of an H100 counts
+    an FMA as 2).  Returns (ms, ms at `iters` steps a row, operations, SMs,
+    MHz)."""
     import torch
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     _, clk = sm_clock_mhz()
     rate = 128 * sms * clk * 1e6                # lane operations a second
-    rest = (sum(x["entries"] for x in stats) * OPS_PADDED
-            + real * (OPS_REAL + m + (m if gvals else 0)))
+    rest = sum(x["entries"] for x in stats) * OPS_ENTRY + ops_real
     ops = OPS_A_STEP * sum(x["entry_steps"] for x in stats) + rest
     ops40 = OPS_A_STEP * iters * sum(x["entries"] for x in stats) + rest
     return ops / rate * 1e3, ops40 / rate * 1e3, ops, sms, clk
+
+
+def steps_bound(nbytes, stats, ops_real, iters):
+    """(bound ms, bound_by, bytes ms, issue ms): max(bytes over the card's
+    memory rate, the issue time at each row's own steps)."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    issue_ms = issue_bound(stats, ops_real, iters)[0]
+    return (max(bytes_ms, issue_ms),
+            "bytes" if bytes_ms >= issue_ms else "operations", bytes_ms,
+            issue_ms)
 
 
 def lanes_checks(what, kernel, lanes_ref, slabs, lam, g, iters):
@@ -436,14 +541,15 @@ def _lanes_bound(what, nbytes, steps, real, m, gvals, iters, sweep):
     issue term from the operations the function needs at each row's own
     steps; the SASS loop's lockstep issue time beside it."""
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    issue_ms, issue40_ms, ops, sms, clk = issue_bound(steps, real, m, gvals,
-                                                      iters)
+    issue_ms, issue40_ms, ops, sms, clk = issue_bound(
+        steps, real_ops(real, m, gvals), iters)
     lock_ms, lock40_ms, per = lockstep_issue(steps, gvals, iters)
     log(f"{what}  bound = max({nbytes} bytes / 3.35 TB/s = {bytes_ms:.4f} ms, "
         f"issue {issue_ms:.4f} ms) = {max(bytes_ms, issue_ms):.4f} ms; issue "
         f"= {ops} float32 operations ({OPS_A_STEP} a step over each row's "
-        f"padded entries x its own steps to a fixed bracket, {OPS_PADDED} a "
-        f"padded entry, {OPS_REAL} + m{' + m' if gvals else ''} a real edge) "
+        f"real entries x its own steps to a fixed bracket, {OPS_ENTRY} + "
+        f"{OPS_REAL} + m{' + m' if gvals else ''} a real edge outside the "
+        f"loop) "
         f"at 128 lanes a clock on {sms} SMs at {clk:.0f} MHz; at {iters} "
         f"steps a row: {issue40_ms:.4f} ms.  Diagnostic, not the bound: the "
         f"built loop in lockstep (SASS instructions a step by layout L x "
@@ -820,26 +926,33 @@ def proj_path(obj, lam, gamma):
 
 
 def check_proj(obj, lam, gamma, xs, us):
-    """K5 on every slab's u against its plain version, and against K1's x
-    of the same slab."""
+    """K5's outputs on its path (`xs`, from every slab's u) bit for bit
+    against K1's x of the same slab and against K5's kernel-order plain
+    version, and within 1e-4 of its plain version; bfloat16 copies of the
+    widest and narrowest within 5e-2; the steps on its inputs; one sweep
+    timed against the bound max(bytes, issue at each row's own steps)."""
     import torch
     from repro_torch.kernels import ref
-    from repro_torch.kernels.dual_grad import dual_x_slab
+    from repro_torch.kernels.dual_grad import dual_x_slab, row_layout
     from repro_torch.kernels.proj import proj_boxcut
     slabs, iters = obj.lp.slabs, obj.proj_iters
     g = torch.full((), gamma, dtype=torch.float32, device=lam.device)
-    err, err_k1, bitwise = 0.0, 0.0, True
+    err = 0.0
     for s, u, x in zip(slabs, us, xs):
+        x1, _, _ = dual_x_slab(*s[:6], lam, g, iters=iters)
+        require(torch.equal(x, x1), f"proj w={s.width}: x of u is not "
+                f"dual_x_slab's x bit for bit")
+        require(torch.equal(x, ref.proj_lanes_ref(
+            u, s.ub, s.s, s.mask, iters, row_layout(s.width))),
+            f"proj w={s.width}: not the bits of proj_lanes_ref")
         xr = ref.proj_boxcut_ref(u, s.ub, s.s, s.mask, iters)
         err = max(err, float((x - xr).abs().max()))
-        x1, _, _ = dual_x_slab(*s[:6], lam, g, iters=iters)
-        err_k1 = max(err_k1, float((x - x1).abs().max()))
-        bitwise &= torch.equal(x, x1)
+        del x1, xr
     require(err <= 1e-4, f"proj: max |dx| {err} > 1e-4")
-    require(err_k1 <= 1e-4, f"proj of u vs dual_x: max |dx| {err_k1} > 1e-4")
-    log(f"proj_boxcut  f32 all {len(slabs)} slabs: max|dx| {err:.3e} (atol "
-        f"1e-4); against dual_x_slab's x: max|dx| {err_k1:.3e} (atol 1e-4), "
-        f"bit-identical: {bitwise}")
+    log(f"proj_boxcut  f32 all {len(slabs)} slabs (layouts "
+        f"{[row_layout(s.width) for s in slabs]}): x of every slab's u "
+        f"equals dual_x_slab's x and proj_lanes_ref bit for bit; max|dx| "
+        f"against the plain version {err:.3e} (atol 1e-4)")
     widths = sorted(range(len(slabs)), key=lambda i: slabs[i].width)
     for si in (widths[0], widths[-1]):
         s = slabs[si]
@@ -849,6 +962,9 @@ def check_proj(obj, lam, gamma, xs, us):
         e = float((x.float() - xr.float()).abs().max())
         require(e <= 5e-2, f"proj bf16 w={s.width}: {e}")
         log(f"proj_boxcut  bf16 w={s.width}: max|dx| {e:.3e} (tol 5e-2)")
+    steps = proj_steps(slabs, us, iters)
+    log("proj_boxcut  " + steps_line("K5's inputs (each slab's u at the "
+                                     "final lambda)", steps))
 
     def kernel():
         for s, u in zip(slabs, us):
@@ -865,18 +981,23 @@ def check_proj(obj, lam, gamma, xs, us):
     rows = sum(s.n for s in slabs)
     ev = us[0].element_size()
     nbytes = real * (ev + 4) + padded * (1 + ev) + rows * 4
-    ops = real * (4 + 4 * iters)
-    bound_ms, bound_by = bound(nbytes, ops)
+    bound_ms, bound_by, bytes_ms, issue_ms = steps_bound(
+        nbytes, steps, real * OPS_X, iters)
     log(f"proj_boxcut  one sweep ({len(slabs)} slabs, {real} real entries of "
         f"{padded}): {ms:.4f} ms; plain {plain_ms:.4f} ms; bound "
-        f"{bound_ms:.4f} ms = max({nbytes} bytes / 3.35 TB/s, {ops} ops / "
-        f"67 TFLOP/s); bytes = real*({ev} v + 4 ub) + padded*(1 mask + {ev} "
+        f"{bound_ms:.4f} ms ({bound_by}) = max({nbytes} bytes / 3.35 TB/s = "
+        f"{bytes_ms:.4f} ms, issue {issue_ms:.4f} ms: {OPS_A_STEP} float32 "
+        f"operations a step over each row's real entries x its own steps, "
+        f"{OPS_ENTRY} + {OPS_X} a real entry outside the loop, at 128 lanes "
+        f"a clock an SM); bytes = real*({ev} v + 4 ub) + padded*(1 mask + {ev} "
         f"x) + {rows} rows*4 s")
     return {"name": "proj_boxcut", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/proj.cu",
             "replaces": "src/repro/kernels/proj.py:49",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_bytes_ms": bytes_ms, "bound_issue_ms": issue_ms,
+            "library_ms": None}
 
 
 def calculate_bits_equal(a, b):
@@ -887,43 +1008,151 @@ def calculate_bits_equal(a, b):
             and all(torch.equal(u, v) for u, v in zip(a1, a2)))
 
 
-def wide_rows():
-    """A dense-eligibility instance (a 2,048-wide slab) through the CLI
-    entry point, and K1, K3, K5 against their plain versions on synthetic
-    slabs 2,048 and 8,192 wide.  Returns K1's time, its plain version's
-    and its bound on the instance's 2,048-wide slab."""
+def wide_slab(seed, n, w, m, J):
+    """A synthetic slab of n rows of width w on the card, as tensors (a, c,
+    dest, mask, ub, s) in a `Slab`, with lam (m, J) and gamma = 0.1: row
+    degrees uniform in [0, w] (a prefix mask), ub uniform in [0.5, 1] and
+    s in [0.5, 4] (drawn as tests/test_torch_cuda.py::
+    test_proj_kernel_matches_plain draws them), a and -c lognormal(0, 0.5),
+    dest uniform over J, lam uniform in [0, 0.05]: u ~ 10, so nearly every
+    row needs the bisection."""
     import numpy as np
     import torch
-    from repro_torch.kernels import ref
+    from repro_torch.core.types import Slab
+    rng = np.random.default_rng(seed)
+    deg = rng.integers(0, w + 1, size=n)
+    mask = np.arange(w)[None, :] < deg[:, None]
+    ub = np.where(mask, rng.uniform(0.5, 1.0, (n, w)), 0)
+    s = rng.uniform(0.5, 4.0, n)
+    a = np.where(mask[..., None], rng.lognormal(0, 0.5, (n, w, m)), 0)
+    c = np.where(mask, -rng.lognormal(0, 0.5, (n, w)), 0)
+    dest = np.where(mask, rng.integers(0, J, (n, w)), 0)
+    lam = rng.uniform(0, 0.05, (m, J))
+    f = np.float32
+    to = lambda v: torch.from_numpy(v).to(DEVICE)
+    slab = Slab(to(a.astype(f)), to(c.astype(f)), to(dest.astype(np.int32)),
+                to(mask), to(ub.astype(f)), to(s.astype(f)),
+                torch.arange(n, dtype=torch.int32, device=DEVICE))
+    return slab, to(lam.astype(f)), torch.full((), 0.1, device=DEVICE)
+
+
+def wide_calls(slab, lam, g, iters):
+    """K1, K3 and K5 (on the slab's u) of one slab, each a callable, as the
+    checkout's wrappers run them."""
     from repro_torch.kernels.dual_grad import dual_grad_slab, dual_x_slab
     from repro_torch.kernels.proj import proj_boxcut
+    u = slab_u(slab.a_vals, slab.c_vals, slab.dest_idx, lam, g)
+    return {"dual_x_slab": lambda: dual_x_slab(*slab[:6], lam, g,
+                                               iters=iters),
+            "dual_grad_slab": lambda: dual_grad_slab(*slab[:6], lam, g,
+                                                     iters=iters),
+            "proj_boxcut": lambda: proj_boxcut(u, slab.ub, slab.s,
+                                               slab.mask, iters)}, u
+
+
+def wide_slab_record(what, slab, lam, g, iters):
+    """K1, K3 and K5 on one wide slab: bit for bit against their
+    block-order plain versions (K5 fed the slab's u gives K1's x), the
+    wide routine's steps, and each kernel's time, its plain version's and
+    its bound max(bytes, issue at each row's own steps).  Returns {kernel
+    name: {ms, plain_ms, bound_ms, bound_by}}."""
+    import torch
+    from repro_torch.kernels import ref
+    calls, u = wide_calls(slab, lam, g, iters)
+    x1, cx1, sq1 = calls["dual_x_slab"]()
+    x3, g3, cx3, sq3 = calls["dual_grad_slab"]()
+    x5 = calls["proj_boxcut"]()
+    want = ref.dual_grad_block_ref(*slab[:6], lam, g, iters)
+    require(all(torch.equal(a, b) for a, b in
+                zip((x3, g3, cx3, sq3), want)) and torch.equal(x1, x3)
+            and torch.equal(cx1, cx3) and torch.equal(sq1, sq3),
+            f"{what}: dual_x / dual_grad not the bits of dual_grad_block_ref")
+    require(torch.equal(x5, x1) and torch.equal(
+        x5, ref.proj_block_ref(u, slab.ub, slab.s, slab.mask, iters)),
+        f"{what}: proj_boxcut(u) not dual_x's x / proj_block_ref bit for bit")
+    lay = ref.block_layout(slab.width)
+    v, ubp = ref.lanes_u(*slab[:5], lam, g, lay)
+    steps = [steps_stats(slab.width, slab.n, v, ubp, slab.s, lay, iters,
+                         slab.mask)]
+    del v, ubp, x1, x3, g3, x5, want
+    log(f"{what} ({slab.n} x {slab.width}, chunk {lay[1]}): K1, K3, K5 equal "
+        f"their block-order plain versions bit for bit; " + steps_line(
+            "its lambda", steps))
+    m, J = lam.shape
+    base, real, padded, rows, ea, ec, eu = _slab_bytes([slab], m, J)
+    plains = {"dual_x_slab": lambda: ref.dual_x_ref(*slab[:6], lam, g, iters),
+              "dual_grad_slab": lambda: ref.dual_grad_ref(*slab[:6], lam, g,
+                                                          iters),
+              "proj_boxcut": lambda: ref.proj_boxcut_ref(
+                  u, slab.ub, slab.s, slab.mask, iters)}
+    work = {"dual_x_slab": (base + padded * ec, real_ops(real, m, False)),
+            "dual_grad_slab": (base + padded * (ec + ea * m),
+                               real_ops(real, m, True)),
+            "proj_boxcut": (real * (4 + eu) + padded * (1 + ec) + rows * 4,
+                            real * OPS_X)}
+    no_steps, _ = wide_calls(slab, lam, g, 0)
+    out = {}
+    for name, fn in calls.items():
+        nbytes, ops_real = work[name]
+        bound_ms, bound_by, bytes_ms, issue_ms = steps_bound(
+            nbytes, steps, ops_real, iters)
+        out[name] = {"ms": cuda_ms(fn), "device_ms": device_ms(fn),
+                     "device_ms_no_steps": device_ms(no_steps[name]),
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "plain_ms": cuda_ms(plains[name], reps=5, warmup=1)}
+        r = out[name]
+        fmt = lambda v: "not measured" if v is None else f"{v:.4f} ms"
+        log(f"{name} on {what} ({slab.n} x {slab.width}, {real} real "
+            f"entries): {r['ms']:.4f} ms (CUDA events); its kernels on the "
+            f"device {fmt(r['device_ms'])}, and at 0 bisection steps "
+            f"{fmt(r['device_ms_no_steps'])} (profiled; the second a "
+            f"diagnostic: loads, u, stores); "
+            f"plain {r['plain_ms']:.4f} ms; bound {bound_ms:.5f} ms "
+            f"({bound_by}) = max({nbytes} bytes = {bytes_ms:.5f} ms, issue "
+            f"{issue_ms:.5f} ms)")
+    return out
+
+
+def wide_instance(args_extra, log_fn):
+    """The dense-eligibility instance, generated, and solved through the
+    CLI's entry point for 50 iterations: (instance, outcome, launches)."""
     from repro_torch.launch import solve
-    args = solve.build_parser().parse_args(WIDE_ARGS + ["--iterations", "50"])
-    inst = solve.generate_instance(args, log=lambda msg: log(f"  {msg}"))
+    args = solve.build_parser().parse_args(WIDE_ARGS + args_extra)
+    inst = solve.generate_instance(args, log=log_fn)
+    reset_counters()
+    out = solve.run(args, log=log_fn, instance=inst)
+    return inst, out, read_counters()
+
+
+def wide_rows():
+    """Rows wider than 1,024.  A dense-eligibility instance (a 2,048-wide
+    slab) through the CLI entry point: 50 iterations against the reference
+    CLI's dual, then to tolerance with a valid certificate.  K1, K3 and K5
+    on its 3 x 2,048 slab at the 50-iteration lambda and on the 8,192 x
+    2,048 throughput slab, timed against their bounds; and bit for bit
+    against their block-order plain versions at widths 2,048, 8,192,
+    16,384 and 32,768 (chunks in registers, shared memory, global
+    scratch).  Returns {kernel name: {slab: times}}."""
+    import torch
+    from repro_torch.launch import solve
+    inst, out, launches = wide_instance(["--iterations", "50"],
+                                        lambda msg: log(f"  {msg}"))
     widths = [s.width for s in inst.lp.slabs]
     require(max(widths) > 1024, f"wide instance: widths {widths}")
-    out = solve.run(args, log=lambda msg: log(f"  {msg}"), instance=inst)
     dual = out.result["dual_obj_final"]
     rel = abs(dual - WIDE_DUAL_50) / abs(WIDE_DUAL_50)
     log(f"wide 3000x5000 nu=1000 (slab widths {widths}), 50 iterations: "
         f"dual {dual:.6f} vs the reference CLI's {WIDE_DUAL_50} (rel "
-        f"{rel:.2e}, limit 1e-4); solve loop {out.solve_seconds:.3f} s")
+        f"{rel:.2e}, limit 1e-4); solve loop {out.solve_seconds:.3f} s; "
+        f"launches {launches} (dual_x_slab: one a slab an evaluation)")
     require(rel <= 1e-4, f"wide instance dual off by {rel:.2e}")
+    require(launches["dual_x_slab"] > 0, "the wide path never ran")
     wide = max(out.objective.lp.slabs, key=lambda s: s.width)
     lam, g = out.lam, torch.full((), out.gamma, device=out.lam.device)
-    iters = out.objective.proj_iters
-    ms_inst = cuda_ms(lambda: dual_x_slab(*wide[:6], lam, g, iters=iters))
-    plain_inst = cuda_ms(lambda: ref.dual_x_ref(*wide[:6], lam, g, iters),
-                         reps=5, warmup=1)
-    m, J = lam.shape
-    nbytes, real, padded, rows, ea, ec, eu = _slab_bytes([wide], m, J)
-    nbytes += padded * ec                     # x written
-    ops = real * (2 * m + 12 + 4 * iters)
-    bound_inst, bound_by = bound(nbytes, ops)
-    log(f"dual_x_slab on the instance's {wide.n} x {wide.width} slab: "
-        f"{ms_inst:.4f} ms; plain {plain_inst:.4f} ms; bound "
-        f"{bound_inst:.4f} ms ({bound_by}) = max({nbytes} bytes / 3.35 TB/s, "
-        f"{ops} ops / 67 TFLOP/s), K1's formula")
+    recs = {name: {"cell_3x2048": r} for name, r in wide_slab_record(
+        "the wide cell's slab", wide, lam, g,
+        out.objective.proj_iters).items()}
+    recs["dual_x_slab"]["cell_3x2048"]["launches"] = launches["dual_x_slab"]
     del out
     args = solve.build_parser().parse_args(
         WIDE_ARGS + ["--adaptive-continuation", "--tol-rel-dual", "1e-6",
@@ -938,46 +1167,145 @@ def wide_rows():
     require(res["certificate_valid"] is True, "wide certificate not valid")
     del out, inst
 
-    rng = np.random.default_rng(12)
-    for w in (2048, 8192):
-        n, m, J = 600, 2, 5000
-        deg = rng.integers(1, w + 1, size=n)
-        mask = np.arange(w)[None, :] < deg[:, None]
-        a = np.where(mask[..., None], rng.lognormal(0, 0.5, (n, w, m)), 0)
-        c = np.where(mask, -rng.lognormal(0, 0.5, (n, w)), 0)
-        dest = np.where(mask, rng.integers(0, J, (n, w)), 0)
-        ub = np.where(mask, rng.uniform(0.5, 1.0, (n, w)), 0)
-        s = rng.uniform(1.0, 8.0, n)
-        lam = rng.uniform(0, 0.05, (m, J))
-        f = np.float32
-        t = [torch.from_numpy(v).to(DEVICE) for v in
-             (a.astype(f), c.astype(f), dest.astype(np.int32), mask,
-              ub.astype(f), s.astype(f), lam.astype(f))]
-        gam = torch.full((), 0.1, device=DEVICE)
-        x1, cx1, sq1 = dual_x_slab(*t, gam)
-        x3, g3, cx3, sq3 = dual_grad_slab(*t, gam)
-        xr, gr, cxr, sqr = ref.dual_grad_ref(*t, gam)
-        u = slab_u(t[0], t[1], t[2], t[6], gam)
-        x5 = proj_boxcut(u, t[4], t[5], t[3])
-        x5r = ref.proj_boxcut_ref(u, t[4], t[5], t[3])
-        e1 = float((x1 - xr).abs().max())
-        e3 = max(float((x3 - xr).abs().max()), float((g3 - gr).abs().max()))
-        e5 = max(float((x5 - x5r).abs().max()),
-                 float((x5 - x1).abs().max()))
-        es = max(abs(float(cx1) - float(cxr)) / abs(float(cxr)),
-                 abs(float(sq1) - float(sqr)) / abs(float(sqr)))
-        same = (torch.equal(x1, x3) and torch.equal(cx1, cx3)
-                and torch.equal(sq1, sq3))
-        ms1 = cuda_ms(lambda: dual_x_slab(*t, gam))
-        log(f"wide synthetic w={w} (n={n}, m={m}): dual_x max|dx| {e1:.3e}, "
-            f"dual_grad {e3:.3e}, proj (against plain and dual_x) {e5:.3e} "
-            f"(atol 1e-4); scalars rel "
-            f"{es:.3e} (rtol 1e-5); dual_grad = dual_x bitwise: {same}; "
-            f"proj(u) = dual_x bitwise: {torch.equal(x5, x1)}; dual_x "
-            f"{ms1:.4f} ms")
-        require(max(e1, e3, e5) <= 1e-4 and es <= 1e-5 and same,
-                f"wide kernels at w={w}")
-    return ms_inst, plain_inst, bound_inst
+    for w in WIDE_BITS:
+        n = min(600, 10_000_000 // w)
+        slab, lam, g = wide_slab(w, n, w, 2, 5000)
+        wide_slab_bits(f"wide synthetic w={w}", slab, lam, g)
+        del slab
+    slab, lam, g = wide_slab(0, *THROUGHPUT_SLAB, 1, 5000)
+    for name, r in wide_slab_record("the throughput slab", slab, lam, g,
+                                    40).items():
+        recs[name]["throughput_8192x2048"] = r
+    del slab
+    for name, r in wide_store_times().items():
+        recs[name]["by_storage"] = r
+    return recs
+
+
+def wide_store_times():
+    """K1, K3 and K5 (float32, m = 1, seed 0) at each of STORE_WIDTHS with
+    the chunks in registers, staged in shared memory and staged in global
+    scratch, on a slab of STORE_ENTRIES / w rows and on one of 3 rows: the
+    three give the same bits (checked: one order of the sums), and each
+    is timed by CUDA events and by device time.  Returns {kernel:
+    {"n x w": {storage: {ms, device_ms}}}}."""
+    import torch
+    from repro_torch.kernels import dual_grad as dg
+    from repro_torch.kernels import proj, ref
+    out = {}
+    for w in STORE_WIDTHS:
+        for n in (STORE_ENTRIES // w, 3):
+            slab, lam, g = wide_slab(0, n, w, 1, 5000)
+            u = slab_u(slab.a_vals, slab.c_vals, slab.dest_idx, lam, g)
+            gv = torch.empty_like(slab.a_vals)
+            lay = ref.block_layout(w)
+            runs = {}
+            for st, store in enumerate(STORE_NAMES):
+                runs[store] = {
+                    "dual_x_slab": functools.partial(
+                        dg._launch, dg.dual_x_slab, *slab[:6], lam, g, 40,
+                        None, None, lay, st),
+                    "dual_grad_slab": functools.partial(
+                        dg._launch, dg.dual_grad_slab, *slab[:6], lam, g,
+                        40, None, gv, lay, st),
+                    "proj_boxcut": functools.partial(
+                        proj._launch, u, slab.ub, slab.s, slab.mask, 40, lay,
+                        st)}
+            first = None
+            for store, calls in runs.items():
+                got = [calls["dual_x_slab"](), calls["dual_grad_slab"](),
+                       gv.clone(), calls["proj_boxcut"]()]
+                got = [t for r in got for t in
+                       (r if isinstance(r, tuple) else (r,))]
+                first = first or got
+                require(all(torch.equal(a, b) for a, b in zip(first, got)),
+                        f"wide w={w} n={n}: chunks in {store} do not give "
+                        f"the bits of chunks in registers")
+            del first, got
+            key = f"{n}x{w}"
+            for name in runs["registers"]:
+                t = {store: {"ms": cuda_ms(calls[name]),
+                             "device_ms": device_ms(calls[name])}
+                     for store, calls in runs.items()}
+                out.setdefault(name, {})[key] = t
+                fmt = lambda v: ("not measured" if v is None
+                                 else f"{v:.4f} ms")
+                log(f"{name} {key} (chunk {lay[1]}, f32, m=1), by storage: "
+                    + "; ".join(
+                        f"{store} {fmt(r['device_ms'])} device, "
+                        f"{r['ms']:.4f} ms events" for store, r in t.items())
+                    + " (the same bits in each)")
+            del slab, u, gv, runs
+    return out
+
+
+def wide_slab_bits(what, slab, lam, g):
+    """K1, K3, K5 of one synthetic wide slab (m = 2) against their
+    block-order plain versions, bit for bit, and within 1e-4 of their
+    plain versions; two runs bit for bit."""
+    import torch
+    from repro_torch.kernels import ref
+    calls, u = wide_calls(slab, lam, g, 40)
+    first, again = ([*k1, *k3, k5] for k1, k3, k5 in (
+        [f() for f in calls.values()] for _ in range(2)))
+    require(all(torch.equal(a, b) for a, b in zip(first, again)),
+            f"{what}: two runs differ")
+    x1, cx1, sq1, x3, g3, cx3, sq3, x5 = first
+    want = ref.dual_grad_block_ref(*slab[:6], lam, g, 40)
+    require(all(torch.equal(a, b) for a, b in zip((x3, g3, cx3, sq3), want))
+            and torch.equal(x1, x3) and torch.equal(cx1, cx3)
+            and torch.equal(sq1, sq3), f"{what}: dual_x / dual_grad not the "
+            f"bits of dual_grad_block_ref")
+    require(torch.equal(x5, x1) and torch.equal(
+        x5, ref.proj_block_ref(u, slab.ub, slab.s, slab.mask, 40)),
+        f"{what}: proj_boxcut(u) not dual_x's x / proj_block_ref")
+    xr, gr, cxr, sqr = ref.dual_grad_ref(*slab[:6], lam, g)
+    e = max(float((x1 - xr).abs().max()), float((g3 - gr).abs().max()))
+    es = max(abs(float(cx1) - float(cxr)) / abs(float(cxr)),
+             abs(float(sq1) - float(sqr)) / abs(float(sqr)))
+    require(e <= 1e-4 and es <= 1e-5, f"{what}: against the plain versions "
+            f"{e}, {es}")
+    log(f"{what} (n={slab.n}, m=2, chunk {ref.block_layout(slab.width)[1]}): "
+        f"K1, K3, K5 equal their block-order plain versions bit for bit, "
+        f"twice; against the plain versions max|dx|,|dg| {e:.3e} (atol "
+        f"1e-4), scalars rel {es:.3e} (rtol 1e-5)")
+
+
+def kernel_times(root):
+    """`--kernel-times ROOT`: K1, K3 and K5 of the checkout at `root` (whose
+    `src/` is on the path) timed on the wide slabs that phase 6 times:
+    the 8,192 x 2,048 throughput slab, and the wide cell's 3 x 2,048 slab
+    at its 50-iteration lambda (CUDA events, and the device time of the
+    calls' kernels).  Prints one JSON line; checks nothing."""
+    import torch
+    from repro_torch.kernels import _build
+    WRAPPERS.update(_wrappers())
+    _build.build()
+    times = {}
+    _, out, _ = wide_instance(["--iterations", "50"], lambda msg: None)
+    wide = max(out.objective.lp.slabs, key=lambda s: s.width)
+    g = torch.full((), out.gamma, device=out.lam.device)
+    calls, _ = wide_calls(wide, out.lam, g, out.objective.proj_iters)
+    times["cell_3x2048"] = {k: {"ms": cuda_ms(f), "device_ms": device_ms(f)}
+                            for k, f in calls.items()}
+    del out, calls
+    slab, lam, g = wide_slab(0, *THROUGHPUT_SLAB, 1, 5000)
+    calls, _ = wide_calls(slab, lam, g, 40)
+    times["throughput_8192x2048"] = {
+        k: {"ms": cuda_ms(f), "device_ms": device_ms(f)}
+        for k, f in calls.items()}
+    print(json.dumps({"kernel_times": times, "root": root,
+                      "device": torch.cuda.get_device_name(0)}), flush=True)
+    return 0
+
+
+def _wrappers():
+    from repro_torch.kernels.ax_reduce import ax_reduce_plan, ax_reduce_plan_x
+    from repro_torch.kernels.dual_grad import dual_grad_slab, dual_x_slab
+    from repro_torch.kernels.proj import proj_boxcut
+    return dict(dual_x_slab=dual_x_slab, ax_reduce_plan_x=ax_reduce_plan_x,
+                dual_grad_slab=dual_grad_slab, ax_reduce_plan=ax_reduce_plan,
+                proj_boxcut=proj_boxcut)
 
 
 def repeatability(obj, gamma):
@@ -1029,9 +1357,10 @@ def parity_solve(lp_np, mode, count=None, normalized=True,
 
 def parity():
     """The reference's recorded perf_lp/tol_agd run on the card in every ax
-    mode, aligned and sorted twice from a fresh instance (no atomics on
-    their paths: the two runs must agree bit for bit), aligned_gvals
-    bit-identical to aligned; then GlobalCountObjective."""
+    mode, aligned, scatter and sorted twice from a fresh instance (the two
+    runs must agree bit for bit: no atomics on aligned's and sorted's
+    paths, scatter's sum in float64), aligned_gvals bit-identical to
+    aligned; then GlobalCountObjective."""
     import torch
     from repro_torch.core import InstanceSpec, generate, validate_lp
     spec = InstanceSpec(num_sources=2000, num_destinations=1000,
@@ -1039,8 +1368,8 @@ def parity():
     lp_np = validate_lp(generate(spec))
     lo, hi = PARITY_ITERATIONS
     runs = {}
-    for mode in ("aligned", "aligned", "aligned_gvals", "scatter", "sorted",
-                 "sorted"):
+    for mode in ("aligned", "aligned", "aligned_gvals", "scatter", "scatter",
+                 "sorted", "sorted"):
         res, dt, obj = parity_solve(lp_np, mode)
         dual = float(res.stats.dual_obj[-1])
         rel = abs(dual - PARITY_DUAL) / abs(PARITY_DUAL)
@@ -1057,14 +1386,17 @@ def parity():
         runs.setdefault(mode, []).append((res, obj))
     (a, obj_a), (a2, _) = runs["aligned"]
     (s1, _), (s2, _) = runs["sorted"]
+    (c1, _), (c2, _) = runs["scatter"]
     (ag, _), = runs["aligned_gvals"]
     for r1, r2, what in ((a, a2, "two aligned runs"),
                          (s1, s2, "two sorted runs"),
+                         (c1, c2, "two scatter runs"),
                          (a, ag, "aligned_gvals and aligned")):
         require(r1.iterations_run == r2.iterations_run
                 and torch.equal(r1.lam, r2.lam), f"{what} differ")
-    log("parity: aligned twice, sorted twice, and aligned_gvals against "
-        "aligned bit-identical (iterations and lambda)")
+    log("parity: aligned twice, scatter twice, sorted twice, and "
+        "aligned_gvals against aligned bit-identical (iterations and "
+        "lambda)")
 
     gamma = torch.full((), 0.01, device=DEVICE)
     x_free = sum(float(x.float().sum()) for x in obj_a.primal(a.lam, gamma))
@@ -1101,14 +1433,31 @@ def read_counters():
     return {name: fn.launches for name, fn in WRAPPERS.items()}
 
 
+def device_ms(fn, reps=20):
+    """Mean device time in ms of one call of `fn`, its CUDA kernels'
+    durations summed, from a window that torch.profiler traces for device
+    activity alone; None if it records none.  Unlike `cuda_ms` it leaves
+    out the host's time between launches, which decides tiny calls."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    busy = sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA) / 1e3
+    return busy / reps if busy > 0 else None
+
+
 def evaluation_timing(obj, lam, gamma, reps=10):
     """One dual evaluation at lambda, after warm-up: (synchronised ms and
     host enqueue ms, both without the profiler; device kernel ms from a
     window profiled for device activity alone, or None if it records no
     device time)."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     g = torch.full((), gamma, device=lam.device)
     for _ in range(3):
         obj.calculate(lam, g)
@@ -1119,14 +1468,8 @@ def evaluation_timing(obj, lam, gamma, reps=10):
     t_enq = time.perf_counter() - t0
     torch.cuda.synchronize()
     t_all = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            obj.calculate(lam, g)
-        torch.cuda.synchronize()
-    busy = sum(e.time_range.elapsed_us() for e in prof.events()
-               if e.device_type == DeviceType.CUDA) / 1e3
     return (t_all / reps * 1e3, t_enq / reps * 1e3,
-            busy / reps if busy > 0 else None)
+            device_ms(lambda: obj.calculate(lam, g), reps))
 
 
 def drive(args, inst, expect, what):
@@ -1171,20 +1514,24 @@ def drive(args, inst, expect, what):
 
 
 def main() -> int:
+    import argparse
     import torch
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument(
+        "--kernel-times", metavar="ROOT",
+        help="only time K1, K3 and K5 of the checkout at ROOT on the wide "
+        "slabs (e.g. an unpacked copy of another commit) and print them")
+    opts = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
         return 1
+    root = os.path.abspath(opts.kernel_times or ROOT)
+    sys.path.insert(0, os.path.join(root, "src"))
+    if opts.kernel_times:
+        return kernel_times(root)
     from repro_torch.kernels import _build
-    from repro_torch.kernels.ax_reduce import ax_reduce_plan, ax_reduce_plan_x
-    from repro_torch.kernels.dual_grad import dual_grad_slab, dual_x_slab
-    from repro_torch.kernels.proj import proj_boxcut
     from repro_torch.launch import solve
-    WRAPPERS.update(dual_x_slab=dual_x_slab,
-                    ax_reduce_plan_x=ax_reduce_plan_x,
-                    dual_grad_slab=dual_grad_slab,
-                    ax_reduce_plan=ax_reduce_plan,
-                    proj_boxcut=proj_boxcut)
+    WRAPPERS.update(_wrappers())
     t_start = time.perf_counter()
 
     # 1. device
@@ -1208,6 +1555,9 @@ def main() -> int:
         "spill store bytes): " + ", ".join(
             f"{d} {L}x{V} {'K3' if gv else 'K1'}: {r}, {sp}"
             for (d, L, V, gv), (r, sp) in sorted(inst.items())))
+    log("wide and K5 instances (kernel type layout: registers, spill store "
+        "bytes): " + ", ".join(f"{k}: {r}, {sp}" for k, (r, sp) in
+                               sorted(ptxas_wide(ptxas).items())))
 
     # 3. the main path, through the CLI's entry point
     args = solve.build_parser().parse_args(MAIN_ARGS)
@@ -1263,9 +1613,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 6. rows wider than 1,024
-    rec = records["dual_x_slab"]
-    (rec["wide_2048_ms"], rec["wide_2048_plain_ms"],
-     rec["wide_2048_bound_ms"]) = wide_rows()
+    for name, rec in wide_rows().items():
+        records[name]["wide"] = rec
 
     # 7. parity with the reference's recorded run, every mode
     parity()

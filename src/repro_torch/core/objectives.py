@@ -21,8 +21,9 @@ selects both (DESIGN.md §3):
                    sorted by destination once at construction
                    (`torch.segment_reduce`: a fixed order, repeatable);
   "scatter"        the gvals sweep, then a destination-keyed scatter-add
-                   (`index_add_`, the paper-faithful baseline; its atomics
-                   on the card are not bit-repeatable).
+                   (`index_add_`, the paper-faithful baseline; on the card
+                   by atomics, in float64 so that their order does not
+                   move the float32 result).
 
 `GlobalCountObjective` adds one all-ones dual row through the scalar
 `shift` hook of both sweeps.
@@ -95,11 +96,16 @@ def slab_xgvals(slab: Slab, lam, gamma, proj_kind: str, proj_iters: int = 40,
 
 def _segment_ax(gvals_flat: torch.Tensor, flat_dest: torch.Tensor,
                 num_destinations: int) -> torch.Tensor:
-    """(m, J) destination-keyed scatter-add of flattened gvals (E, m),
-    summed in float32 (`index_add_`: atomics on the card)."""
+    """(m, J) float32 destination-keyed scatter-add of flattened gvals
+    (E, m) by `index_add_` (atomics on the card), summed in float64 and
+    rounded once: a float64 sum of float32 values is exact, so the same
+    whatever order the atomics land in, while the values' magnitudes span
+    less than 2^29, and past that differs by far less than a float32
+    ulp.  A float32 sum's result moved with that order, and with it the
+    stopping iteration."""
     ax = torch.zeros((num_destinations, gvals_flat.shape[1]),
-                     dtype=torch.float32, device=gvals_flat.device)
-    return ax.index_add_(0, flat_dest, gvals_flat.float()).T
+                     dtype=torch.float64, device=gvals_flat.device)
+    return ax.index_add_(0, flat_dest, gvals_flat.double()).float().T
 
 
 def slab_contribution(slab: Slab, lam, gamma, num_destinations: int,

@@ -22,10 +22,12 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
-# per library: ptxas reports each dual_x kernel instance's registers and
-# spills (read by chip_smoke.py), and nvcc optimizes the library's many
-# kernel instances in parallel (otherwise the slowest build by twice)
-EXTRA_FLAGS = {"dual_x": ("-Xptxas", "-v", "--split-compile=0")}
+# per library: ptxas reports each dual_x and proj kernel instance's
+# registers and spills (read by chip_smoke.py), and nvcc optimizes
+# dual_x's many kernel instances in parallel (otherwise the slowest build
+# by twice)
+EXTRA_FLAGS = {"dual_x": ("-Xptxas", "-v", "--split-compile=0"),
+               "proj": ("-Xptxas", "-v")}
 
 _vp = ctypes.c_void_p
 _i = ctypes.c_int
@@ -38,9 +40,9 @@ _TABLE = [_vp, _vp, _i, _vp, _i, _vp, _vp, _i, _vp]
 # argtypes/restype of every C entry point, per library
 SIGNATURES = {
     "dual_x": {   # K1 dual_x and K3 dual_grad
-        "dual_x_scratch": ([_ll, _i, _i], _ll),
-        "dual_x_launch": ([_i] + [_vp] * 12 + [_ll] + [_i] * 6 + [_vp], _i),
-        "dual_grad_launch": ([_i] + [_vp] * 13 + [_ll] + [_i] * 6 + [_vp],
+        "dual_x_scratch": ([_ll, _i, _i, _i], _ll),
+        "dual_x_launch": ([_i] + [_vp] * 12 + [_ll] + [_i] * 7 + [_vp], _i),
+        "dual_grad_launch": ([_i] + [_vp] * 13 + [_ll] + [_i] * 7 + [_vp],
                              _i),
     },
     "ax_reduce_x": {   # K2
@@ -56,8 +58,8 @@ SIGNATURES = {
                              _i),
     },
     "proj": {   # K5
-        "proj_scratch": ([_ll, _i], _ll),
-        "proj_launch": ([_i] + [_vp] * 6 + [_ll, _i, _i, _vp], _i),
+        "proj_scratch": ([_ll, _i, _i, _i], _ll),
+        "proj_launch": ([_i] + [_vp] * 6 + [_ll] + [_i] * 5 + [_vp], _i),
     },
 }
 
@@ -165,6 +167,31 @@ def check_tensor(fn: str, name: str, t, shape, dtype, device) -> None:
         raise ValueError(f"{fn}: {name} is on {t.device}, expected {device}")
     if not t.is_contiguous():
         raise ValueError(f"{fn}: {name} must be contiguous")
+
+
+def _vec_bytes(nbytes: int) -> int:
+    """The width of the kernels' vector loads of a chunk of `nbytes`
+    bytes (common.cuh `vec_bytes`)."""
+    return next(b for b in (16, 8, 4, 2, 1) if nbytes % b == 0)
+
+
+def check_aligned(fn: str, tensors, w: int, m: int, vals: int) -> None:
+    """Raise unless every pointer that a kernel's vector loads and stores
+    touch is aligned to their width.  They move `vals` values of a row at
+    a time and run when w is a multiple of `vals`; a and gvals
+    (`a_vals`, `gvals`, m values an entry) take them for m <= 2 only.
+    `tensors` maps names to tensors (None: not passed)."""
+    if w % vals:
+        return
+    for name, t in tensors.items():
+        per_entry = m if name in ("a_vals", "gvals") else 1
+        if t is None or per_entry > 2:
+            continue
+        nb = _vec_bytes(vals * per_entry * t.element_size())
+        if t.data_ptr() % nb:
+            raise ValueError(
+                f"{fn}: {name} must be {nb}-byte aligned for the kernel's "
+                f"vector loads (address {t.data_ptr():#x})")
 
 
 def check(rc: int, what: str) -> None:

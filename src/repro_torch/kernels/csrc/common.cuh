@@ -1,14 +1,14 @@
 // Shared device helpers of the port's kernels: element conversion for the
 // two input types (float32, bfloat16), vector loads and stores, warp-group
-// sums and maxima by butterfly shuffles, and the box-cut bisection over
-// one row: held in registers across a group of lanes (rows up to 1,024
-// wide), in strided columns (`boxcut_tau`, K5) or in contiguous chunks
-// with an exact early exit (`boxcut_tau_chunk`, K1 and K3), or held in
-// shared or global memory across a block (any width).
+// sums and maxima by butterfly shuffles, and the box-cut bisection that
+// K1, K3 and K5 share: a row in contiguous chunks with an exact early
+// exit, held in registers across a group of lanes (rows up to 1,024 wide,
+// `boxcut_tau_chunk`) or across a block (wider rows, `boxcut_tau_block`,
+// in registers or staged in shared or global memory).
 //
-// Every sum here runs in a fixed order (sequential within a lane, then
-// xor-butterfly across lanes), so results are bit-reproducible from run to
-// run.  No atomics anywhere.
+// Every sum here runs in a fixed order (sequential within a chunk, then
+// xor-butterfly across lanes, then warps in order), so results are
+// bit-reproducible from run to run.  No atomics anywhere.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -160,52 +160,19 @@ __device__ __forceinline__ float clip0(float v, float ub) {
   return fminf(fmaxf(v, 0.0f), ub);
 }
 
-// Threshold τ of the projection of one row onto {0 <= x <= ub, Σx <= s}.
-//
-// The row is spread over a group of L lanes, VPT values a lane; entries
-// the row does not own (padding, or columns past its width) carry
-// v = kNeg and mk = false.  `iters` bisection steps, the reference's
-// arithmetic literally:
-//   f0 = Σ mask·clip(v, 0, ub);  need = f0 > s
+// Threshold τ of the projection of one row onto {0 <= x <= ub, Σx <= s},
+// the reference's τ-bisection of at most `iters` steps:
+//   f0 = Σ clip(v, 0, ub);  need = f0 > s
 //   hi = max v;  lo = min(0, hi)
 //   repeat: mid = 0.5(lo+hi); big = f(mid) > s; lo = big ? mid : lo;
 //           hi = big ? hi : mid
 //   τ = need ? 0.5(lo+hi) : 0
 // Then x = mask ? clip(v − τ, 0, ub) : 0.
-template <int L, int VPT>
-__device__ __forceinline__ float boxcut_tau(const float (&v)[VPT],
-                                            const float (&ub)[VPT],
-                                            const bool (&mk)[VPT], float s,
-                                            int iters) {
-  float f0 = 0.0f, hi = kNeg;
-#pragma unroll
-  for (int i = 0; i < VPT; ++i) {
-    f0 += mk[i] ? clip0(v[i], ub[i]) : 0.0f;
-    hi = fmaxf(hi, v[i]);
-  }
-  f0 = group_sum<L>(f0);
-  hi = group_max<L>(hi);
-  const bool need = f0 > s;
-  float lo = fminf(0.0f, hi);
-  for (int it = 0; it < iters; ++it) {
-    const float mid = 0.5f * (lo + hi);
-    float f = 0.0f;
-#pragma unroll
-    for (int i = 0; i < VPT; ++i)
-      f += mk[i] ? clip0(v[i] - mid, ub[i]) : 0.0f;
-    f = group_sum<L>(f);
-    const bool big = f > s;
-    lo = big ? mid : lo;
-    hi = big ? hi : mid;
-  }
-  return need ? 0.5f * (lo + hi) : 0.0f;
-}
-
-// Threshold τ of one row held in contiguous chunks: lane l of a group of
-// L lanes holds columns [l·VPT, (l+1)·VPT) of the row.  The function of
-// `boxcut_tau`, with the row sums taken in this layout's order (in order
-// within a lane's chunk, then the xor butterfly over the L lanes), and a
-// loop that stops once its result is fixed:
+//
+// The row is held in contiguous chunks: lane l of a group of L lanes
+// holds columns [l·VPT, (l+1)·VPT).  Row sums run in this layout's order
+// (in order within a lane's chunk, then the xor butterfly over the L
+// lanes), and the loop stops once its result is fixed:
 //   - a row whose f0 <= s skips the loop (τ = 0, as after any count);
 //   - a row is done after the step in which mid == lo or mid == hi, once
 //     that step's update is applied: the bracket either did not move or
@@ -252,104 +219,172 @@ __device__ __forceinline__ float boxcut_tau_chunk(const float (&v)[VPT],
   return need ? 0.5f * (lo + hi) : 0.0f;
 }
 
-// K5's register-path layout of a row of width w <= kNarrowMaxWidth: lanes
-// a row (32 for w >= 32, else the next power of two of w) and values a
-// lane (a power of two), the lanes striding over the row.
-inline int lanes_for(int w) {
-  int L = 1;
-  while (L < w && L < 32) L <<= 1;
-  return L;
-}
-
-inline int vpt_for(int w) {
-  int vpt = 1;
-  while (vpt * 32 < w) vpt <<= 1;
-  return vpt;
-}
-
-// ---- Rows wider than one warp's registers hold: one block a row --------
+// ---- Rows wider than 1,024: one block a row ----------------------------
 //
-// Threads a block on the wide path, and the widest row kept in dynamic
-// shared memory (v and ub, 8 bytes an entry: 128 KB of the 227 KB a block
-// may opt in to).  Wider rows live in a global scratch row instead.
+// A row goes to one block of kWideThreads threads.  Thread t holds the
+// contiguous chunk [t·C, (t+1)·C) of C values, C·kWideThreads >= w, where
+// the caller's layout puts it (`kernels/ref.py::block_layout` gives C,
+// `kernels/dual_grad.py::wide_store` the storage): in registers
+// (kStoreRegs, at the C a kernel is instantiated for), or staged in
+// dynamic shared memory (kStoreShared) or in a global scratch row
+// (kStoreGlobal).  The staged chunk is interleaved, value i of thread t at
+// i·kWideThreads + t, so that a warp's reads of a step fall on 32 banks
+// (shared) or one coalesced line (global).  Threads load their chunks
+// kWidePiece values at a time, by vector loads where the row's width is a
+// multiple of it.
 constexpr int kWideThreads = 256;
-constexpr int kWideSmemMaxWidth = 16384;
-constexpr int kNarrowMaxWidth = 32 * 32;  // the register path's widest row
+constexpr int kWideWarps = kWideThreads / 32;
+constexpr int kWidePiece = 8;
+constexpr int kStoreRegs = 0, kStoreShared = 1, kStoreGlobal = 2;
+constexpr size_t kMaxSharedBytes = 227 * 1024;  // an H100 block's opt-in
+// The chunks C with a register instance of each wide kernel
+// (`kernels/dual_grad.py::WIDE_REG_CHUNKS`).
+#define REPRO_WIDE_REG_CHUNKS(X) X(8) X(16) X(32)
 
-// Sum / max over the block, in a fixed order: each warp's butterfly, then
-// the kWideThreads/32 warp results in warp order.  Every thread gets the
-// result.  `red` is kWideThreads/32 floats of shared memory; all threads
-// must call these together.
-__device__ __forceinline__ float block_sum(float v, float* red) {
-  v = group_sum<32>(v);
-  __syncthreads();  // the previous call's readers are done with `red`
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+// Bytes of a staged row of chunk C: v, then ub.
+inline size_t wide_stage_bytes(int chunk) {
+  return 2 * sizeof(float) * (size_t)chunk * kWideThreads;
+}
+
+// Whether (lanes, chunk, store) is a wide layout for rows of width w.
+inline bool wide_layout_ok(int w, int lanes, int chunk, int store) {
+  return lanes == kWideThreads && chunk > 0 && chunk % kWidePiece == 0 &&
+         (long long)chunk * kWideThreads >= w && store >= kStoreRegs &&
+         store <= kStoreGlobal &&
+         (store != kStoreShared || wide_stage_bytes(chunk) <= kMaxSharedBytes);
+}
+
+// The chunk of the calling thread, values v and bounds ub.
+// kC > 0: held in registers, kC values; kC == 0: staged in memory at
+// `buf` (v) and `buf + P` (ub), P = C·kWideThreads.  Each thread reads
+// only what it wrote, so staging needs no barrier.
+template <int kC>
+struct WideChunk {
+  float v_[kC], ub_[kC];
+  __device__ WideChunk(float*, int) {}
+  __host__ __device__ static constexpr int size() { return kC; }
+  __device__ float& v(int i) { return v_[i]; }
+  __device__ float& ub(int i) { return ub_[i]; }
+};
+
+template <>
+struct WideChunk<0> {
+  float* vs;
+  float* us;
+  int n;
+  __device__ WideChunk(float* buf, int chunk)
+      : vs(buf + threadIdx.x), us(buf + chunk * kWideThreads + threadIdx.x),
+        n(chunk) {}
+  __device__ int size() const { return n; }
+  __device__ float& v(int i) { return vs[i * kWideThreads]; }
+  __device__ float& ub(int i) { return us[i * kWideThreads]; }
+};
+
+// Block sums in a fixed order: each thread's value, the warp's xor
+// butterfly over its 32 lanes, then the kWideWarps warp results in warp
+// order, by one barrier.  Every thread gets the same bits.  `buf` is
+// 2 x kWideWarps floats of shared memory; two calls in a row must pass
+// different buffers (a thread may still read the previous call's while a
+// faster one writes), which is all the barrier they need.
+__device__ __forceinline__ void block_sum2(float& a, float& b,
+                                           float (*buf)[kWideWarps],
+                                           bool b_max = false) {
+  a = group_sum<32>(a);
+  b = b_max ? group_max<32>(b) : group_sum<32>(b);
+  if ((threadIdx.x & 31) == 0) {
+    buf[0][threadIdx.x >> 5] = a;
+    buf[1][threadIdx.x >> 5] = b;
+  }
+  __syncthreads();
+  float ta = 0.0f, tb = b_max ? kNeg : 0.0f;
+#pragma unroll
+  for (int i = 0; i < kWideWarps; ++i) {
+    ta += buf[0][i];
+    tb = b_max ? fmaxf(tb, buf[1][i]) : tb + buf[1][i];
+  }
+  a = ta;
+  b = tb;
+}
+
+__device__ __forceinline__ float block_sum(float a, float* buf) {
+  a = group_sum<32>(a);
+  if ((threadIdx.x & 31) == 0) buf[threadIdx.x >> 5] = a;
   __syncthreads();
   float t = 0.0f;
 #pragma unroll
-  for (int i = 0; i < kWideThreads / 32; ++i) t += red[i];
+  for (int i = 0; i < kWideWarps; ++i) t += buf[i];
   return t;
 }
 
-__device__ __forceinline__ float block_max(float v, float* red) {
-  v = group_max<32>(v);
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float t = kNeg;
-#pragma unroll
-  for (int i = 0; i < kWideThreads / 32; ++i) t = fmaxf(t, red[i]);
-  return t;
-}
+// The shared memory of the wide path's reductions: the first one's (f0
+// and max v), then one each step, alternating two buffers, and the last
+// (the row's scalar partials) in a third.
+struct WideRed {
+  alignas(16) float first[2][kWideWarps];
+  alignas(16) float step[2][kWideWarps];  // 16-byte aligned: vector reads
+  alignas(16) float last[2][kWideWarps];
+};
 
-// `boxcut_tau` for one row of any width held in memory (shared or global),
-// spread over the kWideThreads threads of a block: thread t owns entries
-// t, t + kWideThreads, ...  Entries the row does not own hold v = kNeg and
-// ub = 0, which add exactly 0 to every f(·) (clip0(kNeg − mid, 0) = 0),
-// so no mask is needed.  Same arithmetic as `boxcut_tau`; only the order
-// of the row sums differs.  Each thread reads only the entries it wrote.
-__device__ __forceinline__ float boxcut_tau_row(const float* v,
-                                                const float* ub, int w,
-                                                float s, int iters,
-                                                float* red) {
+// `boxcut_tau_chunk` for a row held by a block as `WideChunk`s: the same
+// steps and stopping rule, with the block sums of `block_sum`.  After a
+// block sum every thread holds the same f, so lo, hi and mid, and with
+// them the exit, are the same in every thread: the loop stops together,
+// with no vote.  One barrier a step.  `ref.bisect_block_ref` repeats
+// this in plain torch.
+template <int kC>
+__device__ __forceinline__ float boxcut_tau_block(WideChunk<kC>& ch, float s,
+                                                  int iters, WideRed& red) {
   float f0 = 0.0f, hi = kNeg;
-  for (int i = threadIdx.x; i < w; i += kWideThreads) {
-    f0 += clip0(v[i], ub[i]);
-    hi = fmaxf(hi, v[i]);
+#pragma unroll (kC > 0 ? kC : 4)
+  for (int i = 0; i < ch.size(); ++i) {
+    f0 += clip0(ch.v(i), ch.ub(i));
+    hi = fmaxf(hi, ch.v(i));
   }
-  f0 = block_sum(f0, red);
-  hi = block_max(hi, red);
+  block_sum2(f0, hi, red.first, true);
   const bool need = f0 > s;
   float lo = fminf(0.0f, hi);
-  for (int it = 0; it < iters; ++it) {
-    const float mid = 0.5f * (lo + hi);
-    float f = 0.0f;
-    for (int i = threadIdx.x; i < w; i += kWideThreads)
-      f += clip0(v[i] - mid, ub[i]);
-    f = block_sum(f, red);
-    const bool big = f > s;
-    lo = big ? mid : lo;
-    hi = big ? hi : mid;
+  if (need) {
+#pragma unroll 1
+    for (int it = 0; it < iters; ++it) {
+      const float mid = 0.5f * (lo + hi);
+      float f = 0.0f;
+#pragma unroll (kC > 0 ? kC : 4)
+      for (int i = 0; i < ch.size(); ++i) f += clip0(ch.v(i) - mid, ch.ub(i));
+      f = block_sum(f, red.step[it & 1]);
+      const bool big = f > s;
+      const bool done = mid == lo || mid == hi;
+      lo = big ? mid : lo;
+      hi = big ? hi : mid;
+      if (done) break;
+    }
   }
   return need ? 0.5f * (lo + hi) : 0.0f;
 }
 
-// Where a wide row's v and ub live: dynamic shared memory up to
-// kWideSmemMaxWidth, else 2·w floats of global scratch a row.
-__host__ __device__ inline bool wide_in_smem(int w) {
-  return w <= kWideSmemMaxWidth;
+// Floats of global scratch a row of chunk C needs at `store` (0: none).
+inline long long wide_scratch_row(int chunk, int store) {
+  return store == kStoreGlobal ? 2LL * chunk * kWideThreads : 0;
 }
 
-// Opt the wide kernel `fn` in to the dynamic shared memory a row of width
-// w needs; returns the bytes to launch with.
+// Opt the wide kernel `fn` in to the dynamic shared memory a staged row of
+// chunk C needs; returns the bytes to launch with.
 template <typename F>
-inline size_t wide_smem_bytes(F fn, int w) {
-  if (!wide_in_smem(w)) return 0;
-  const size_t bytes = 2 * sizeof(float) * (size_t)w;
+inline size_t wide_smem_bytes(F fn, int chunk, int store) {
+  if (store != kStoreShared) return 0;
+  const size_t bytes = wide_stage_bytes(chunk);
   if (bytes > 48 * 1024)
     cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          (int)bytes);
   return bytes;
+}
+
+// The staging buffer of the calling block's row: its dynamic shared
+// memory, or its row of global scratch.
+__device__ __forceinline__ float* wide_buffer(float* smem, float* rows,
+                                              int chunk, int store) {
+  return store == kStoreShared
+             ? smem
+             : rows + (size_t)blockIdx.x * 2 * (size_t)chunk * kWideThreads;
 }
 
 }  // namespace repro_torch

@@ -36,15 +36,20 @@
 // by the slab builder, whose widths are powers of two) takes the same
 // columns one by one.
 //
-// Wider rows go one row per 256-thread block: u and ub are formed once
-// into dynamic shared memory (global scratch past 16,384 entries) and the
-// fixed-count bisection runs with fixed-order block sums
-// (`boxcut_tau_row`).  λ is read through the read-only path (__ldg).  The
-// scalar partials are reduced per block and written to a scratch vector;
-// a second one-block pass sums them in a fixed order.  No atomics:
-// results are bit-identical from run to run.  γ is read from device
-// memory (a 0-d tensor in the slab's type, as the Pallas kernel reads
-// gamma_ref), so a schedule that moves γ needs no host synchronisation.
+// Wider rows go one row per 256-thread block (`boxcut_tau_block`): thread
+// t holds the contiguous chunk [t·C, (t+1)·C) at the layout the wrapper
+// gives (`kernels/ref.py::block_layout`: C the next power of two of w over
+// 256), in registers or staged in dynamic shared memory or global scratch
+// (`kernels/dual_grad.py::wide_store`), loaded 8 values at a time by the
+// same vector loads.  A bisection step sums the chunk in order, then
+// the warp's butterfly, then the 8 warp sums in order, by one barrier; it
+// stops exactly, as the register path does.  λ is read through the
+// read-only path (__ldg).  The scalar partials are reduced per block in
+// the same order and written to a scratch vector; a second one-block pass
+// sums them in a fixed order.  No atomics: results are bit-identical from
+// run to run.  γ is read from device memory (a 0-d tensor in the slab's
+// type, as the Pallas kernel reads gamma_ref), so a schedule that moves γ
+// needs no host synchronisation.
 #include <type_traits>
 
 #include "common.cuh"
@@ -60,18 +65,61 @@ __device__ __forceinline__ float add_term(float atl, T a, float lam) {
   return __fadd_rn(atl, __fmul_rn(to_float(a), lam));
 }
 
-// u = −(Σ_k a_k·λ_k[dest] + c)/γ of one real edge, in K1's literal order.
-template <typename T>
-__device__ __forceinline__ float edge_u(const T* __restrict__ a,
-                                        const T* __restrict__ c,
-                                        const int32_t* __restrict__ dest,
-                                        const float* __restrict__ lam,
-                                        size_t e, int m, int J, float gam) {
-  const int d = dest[e];
-  float atl = 0.0f;
-  for (int k = 0; k < m; ++k)
-    atl = add_term(atl, a[e * (size_t)m + k], __ldg(lam + (size_t)k * J + d));
-  return -__fadd_rn(atl, to_float(c[e])) / gam;
+// The N entries [e0, e0 + N) of a slab row, of which the first `nin` are
+// the row's, loaded by vector loads when `vec` (a whole chunk, the row's
+// width a multiple of N): c and the mask bytes as loaded, and a (m values
+// an entry) when `vec` and m <= 2; v = u = −(Σ_k a_k·λ_k[dest] + c)/γ at
+// real entries, in K1's literal order, kNeg elsewhere; ub at real
+// entries, 0 elsewhere.
+template <typename T, int N>
+__device__ __forceinline__ void chunk_u(
+    const T* __restrict__ a, const T* __restrict__ c,
+    const int32_t* __restrict__ dest, const uint8_t* __restrict__ mask,
+    const T* __restrict__ ub, const float* __restrict__ lam, size_t e0,
+    int nin, bool vec, int m, int J, float gam, T (&cv)[N],
+    uint8_t (&mv)[N], T (&ar)[2 * N], float (&v)[N], float (&ubv)[N]) {
+  const bool avec = vec && m <= 2;
+  T ubt[N];
+  int32_t dv[N];
+  if (vec) {
+    ld_vec<true>(c + e0, cv);
+    ld_vec<true>(ub + e0, ubt);
+    ld_vec<true>(dest + e0, dv);
+    ld_vec<true>(mask + e0, mv);
+    if (m == 1) ld_vec_n<true, T, N>(a + e0, ar);
+    else if (m == 2) ld_vec_n<true, T, 2 * N>(a + 2 * e0, ar);
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const bool in = i < nin;
+      cv[i] = in ? c[e0 + i] : from_float<T>(0.0f);
+      ubt[i] = in ? ub[e0 + i] : from_float<T>(0.0f);
+      dv[i] = in ? dest[e0 + i] : 0;
+      mv[i] = in ? mask[e0 + i] : 0;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    v[i] = kNeg;
+    ubv[i] = 0.0f;
+    if (mv[i]) {
+      const int d = dv[i];
+      float atl;
+      if (avec && m == 1) {
+        atl = add_term(0.0f, ar[i], __ldg(lam + d));
+      } else if (avec) {
+        atl = add_term(0.0f, ar[2 * i], __ldg(lam + d));
+        atl = add_term(atl, ar[2 * i + 1], __ldg(lam + (size_t)J + d));
+      } else {
+        atl = 0.0f;
+        for (int k = 0; k < m; ++k)
+          atl = add_term(atl, a[(e0 + i) * (size_t)m + k],
+                         __ldg(lam + (size_t)k * J + d));
+      }
+      v[i] = -__fadd_rn(atl, to_float(cv[i])) / gam;
+      ubv[i] = to_float(ubt[i]);
+    }
+  }
 }
 
 // gvals[e, :] = a[e, :] ⊙ x[e] in the slab's type, 0 on padding.
@@ -115,50 +163,11 @@ dual_x_kernel(const T* __restrict__ a, const T* __restrict__ c,
   const bool avec = vec && m <= 2;
   const size_t e0 = row_ok ? (size_t)row * (size_t)w + (size_t)col0 : 0;
 
-  T cv[VPT], ubt[VPT], ar[2 * VPT];
-  int32_t dv[VPT];
+  T cv[VPT], ar[2 * VPT];
   uint8_t mv[VPT];
-  if (vec) {
-    ld_vec<true>(c + e0, cv);
-    ld_vec<true>(ub + e0, ubt);
-    ld_vec<true>(dest + e0, dv);
-    ld_vec<true>(mask + e0, mv);
-    if (m == 1) ld_vec_n<true, T, VPT>(a + e0, ar);
-    else if (m == 2) ld_vec_n<true, T, 2 * VPT>(a + 2 * e0, ar);
-  } else {
-#pragma unroll
-    for (int i = 0; i < VPT; ++i) {
-      const bool in = i < nin;
-      cv[i] = in ? c[e0 + i] : from_float<T>(0.0f);
-      ubt[i] = in ? ub[e0 + i] : from_float<T>(0.0f);
-      dv[i] = in ? dest[e0 + i] : 0;
-      mv[i] = in ? mask[e0 + i] : 0;
-    }
-  }
-
   float v[VPT], ubv[VPT];
-#pragma unroll
-  for (int i = 0; i < VPT; ++i) {
-    v[i] = kNeg;
-    ubv[i] = 0.0f;
-    if (mv[i]) {
-      const int d = dv[i];
-      float atl;
-      if (avec && m == 1) {
-        atl = add_term(0.0f, ar[i], __ldg(lam + d));
-      } else if (avec) {
-        atl = add_term(0.0f, ar[2 * i], __ldg(lam + d));
-        atl = add_term(atl, ar[2 * i + 1], __ldg(lam + (size_t)J + d));
-      } else {
-        atl = 0.0f;
-        for (int k = 0; k < m; ++k)
-          atl = add_term(atl, a[(e0 + i) * (size_t)m + k],
-                         __ldg(lam + (size_t)k * J + d));
-      }
-      v[i] = -__fadd_rn(atl, to_float(cv[i])) / gam;
-      ubv[i] = to_float(ubt[i]);
-    }
-  }
+  chunk_u<T, VPT>(a, c, dest, mask, ub, lam, e0, nin, vec, m, J, gam, cv, mv,
+                  ar, v, ubv);
 
   const float tau = boxcut_tau_chunk<L, VPT>(v, ubv, s_row, iters);
 
@@ -224,10 +233,13 @@ dual_x_kernel(const T* __restrict__ a, const T* __restrict__ c,
   }
 }
 
-// Rows wider than 1,024: one block of kWideThreads a row.  `rows` is the
-// global scratch (2·w floats a row) when the row does not fit in shared
-// memory, else unused.
-template <typename T, bool kGvals>
+// Rows wider than 1,024: one block of kWideThreads a row, thread t holding
+// the chunk [t·C, (t+1)·C) as a `WideChunk<kC>` (kC = C in registers, 0
+// staged in memory at `store`: shared, or `rows`, 2·C·256 floats of
+// global scratch a row).  On the register path c and the mask stay in registers for the
+// partials; staged rows read them again.  K3 reads a again for gvals, by
+// vector loads and stores for m <= 2.
+template <typename T, int kC, bool kGvals>
 __global__ void __launch_bounds__(kWideThreads)
 dual_x_wide_kernel(const T* __restrict__ a, const T* __restrict__ c,
                    const int32_t* __restrict__ dest,
@@ -235,38 +247,111 @@ dual_x_wide_kernel(const T* __restrict__ a, const T* __restrict__ c,
                    const T* __restrict__ s, const float* __restrict__ lam,
                    const T* __restrict__ gamma, T* __restrict__ x,
                    T* __restrict__ g, float* __restrict__ partials,
-                   float* __restrict__ rows, int w, int m, int J, int iters) {
+                   float* __restrict__ rows, int w, int m, int J, int iters,
+                   int chunk_in, int store) {
   extern __shared__ float smem[];
-  __shared__ float red[kWideThreads / 32];
-  const long long row = blockIdx.x;
-  float* vrow = wide_in_smem(w) ? smem : rows + (size_t)row * 2 * (size_t)w;
-  float* ubrow = vrow + w;
+  __shared__ WideRed red;
+  constexpr int kP = kWidePiece;
+  constexpr int kHeld = kC > 0 ? kC : 1;
+  const int chunk = kC > 0 ? kC : chunk_in;
+  WideChunk<kC> ch(wide_buffer(smem, rows, chunk, store), chunk);
   const float gam = to_float(gamma[0]);
-  for (int col = threadIdx.x; col < w; col += kWideThreads) {
-    const size_t e = (size_t)row * (size_t)w + (size_t)col;
-    const bool mk = mask[e] != 0;
-    vrow[col] = mk ? edge_u<T>(a, c, dest, lam, e, m, J, gam) : kNeg;
-    ubrow[col] = mk ? to_float(ub[e]) : 0.0f;
-  }
-  const float tau =
-      boxcut_tau_row(vrow, ubrow, w, to_float(s[row]), iters, red);
-  float cx = 0.0f, xsq = 0.0f;
-  for (int col = threadIdx.x; col < w; col += kWideThreads) {
-    const size_t e = (size_t)row * (size_t)w + (size_t)col;
-    const bool mk = mask[e] != 0;
-    const float xi = mk ? clip0(vrow[col] - tau, ubrow[col]) : 0.0f;
-    x[e] = from_float<T>(xi);
-    if constexpr (kGvals) write_gvals<T>(a, g, e, m, mk, xi);
-    if (mk) {
-      cx += __fmul_rn(to_float(c[e]), xi);
-      xsq += __fmul_rn(xi, xi);
+  const size_t e_row = (size_t)blockIdx.x * (size_t)w;
+  const int col0 = threadIdx.x * chunk;
+  const bool vec_row = w % kP == 0;
+  T ch_c[kHeld];
+  unsigned ch_mask = 0;  // bit i: entry i of the chunk is real
+#pragma unroll (kC > 0 ? kC / kWidePiece : 1)
+  for (int p = 0; p < chunk / kP; ++p) {
+    const int nin = min(max(w - (col0 + p * kP), 0), kP);
+    T cv[kP], ar[2 * kP];
+    uint8_t mv[kP];
+    float v[kP], ubv[kP];
+    chunk_u<T, kP>(a, c, dest, mask, ub, lam, e_row + col0 + p * kP, nin,
+                   vec_row && nin == kP, m, J, gam, cv, mv, ar, v, ubv);
+#pragma unroll
+    for (int j = 0; j < kP; ++j) {
+      ch.v(p * kP + j) = v[j];
+      ch.ub(p * kP + j) = ubv[j];
+      if constexpr (kC > 0) {
+        ch_c[p * kP + j] = cv[j];
+        ch_mask |= (mv[j] ? 1u : 0u) << (p * kP + j);
+      }
     }
   }
-  cx = block_sum(cx, red);
-  xsq = block_sum(xsq, red);
+
+  const float tau = boxcut_tau_block(ch, to_float(s[blockIdx.x]), iters, red);
+
+  float cx = 0.0f, xsq = 0.0f;
+#pragma unroll (kC > 0 ? kC / kWidePiece : 1)
+  for (int p = 0; p < chunk / kP; ++p) {
+    const int nin = min(max(w - (col0 + p * kP), 0), kP);
+    const bool vec = vec_row && nin == kP;
+    const size_t e = e_row + col0 + p * kP;
+    T cv[kP];
+    uint8_t mv[kP];
+    if constexpr (kC > 0) {
+#pragma unroll
+      for (int j = 0; j < kP; ++j) {
+        cv[j] = ch_c[p * kP + j];
+        mv[j] = (ch_mask >> (p * kP + j)) & 1u;
+      }
+    } else if (vec) {
+      ld_vec<true>(c + e, cv);
+      ld_vec<true>(mask + e, mv);
+    } else {
+#pragma unroll
+      for (int j = 0; j < kP; ++j) {
+        cv[j] = j < nin ? c[e + j] : from_float<T>(0.0f);
+        mv[j] = j < nin ? mask[e + j] : 0;
+      }
+    }
+    T xo[kP];
+#pragma unroll
+    for (int j = 0; j < kP; ++j) {
+      const float xi =
+          mv[j] ? clip0(ch.v(p * kP + j) - tau, ch.ub(p * kP + j)) : 0.0f;
+      xo[j] = from_float<T>(xi);
+      if (mv[j]) {
+        cx += __fmul_rn(to_float(cv[j]), xi);
+        xsq += __fmul_rn(xi, xi);
+      }
+    }
+    if (vec) {
+      st_vec_n<T, kP>(x + e, xo);
+    } else {
+#pragma unroll
+      for (int j = 0; j < kP; ++j)
+        if (j < nin) x[e + j] = xo[j];
+    }
+    if constexpr (kGvals) {
+      const T zero = from_float<T>(0.0f);
+      T ar[2 * kP], go[2 * kP];
+      if (vec && m == 1) {
+        ld_vec_n<true, T, kP>(a + e, ar);
+#pragma unroll
+        for (int j = 0; j < kP; ++j)
+          go[j] = mv[j] ? from_float<T>(mul_in_type(ar[j], xo[j])) : zero;
+        st_vec_n<T, kP>(g + e, go);
+      } else if (vec && m == 2) {
+        ld_vec_n<true, T, 2 * kP>(a + 2 * e, ar);
+#pragma unroll
+        for (int j = 0; j < 2 * kP; ++j)
+          go[j] = mv[j / 2] ? from_float<T>(mul_in_type(ar[j], xo[j / 2]))
+                            : zero;
+        st_vec_n<T, 2 * kP>(g + 2 * e, go);
+      } else {
+#pragma unroll
+        for (int j = 0; j < kP; ++j)
+          if (j < nin)
+            write_gvals<T>(a, g, e + j, m, mv[j] != 0, to_float(xo[j]));
+      }
+    }
+  }
+  block_sum2(cx, xsq, red.last);
   if (threadIdx.x == 0) {
-    partials[row] = cx;
-    partials[gridDim.x + row] = xsq;
+    partials[blockIdx.x] = cx;
+    partials[gridDim.x + blockIdx.x] = xsq;
   }
 }
 
@@ -307,9 +392,18 @@ sum_partials_kernel(const float* __restrict__ partials, int nb,
 #define REPRO_SWEEP_LAYOUTS(X)                                             \
   X(2, 4) X(4, 4) X(8, 4) X(16, 4) X(1, 16) X(2, 16) X(4, 16)
 
-bool layout_ok(int dtype, int w, int lanes, int vpt) {
-  if (w > kNarrowMaxWidth) return true;  // one block a row: no layout
-  if (lanes * vpt < w) return false;
+bool layout_ok(int dtype, int w, int lanes, int vpt, int store) {
+  if (lanes == kWideThreads) {
+    if (!wide_layout_ok(w, lanes, vpt, store)) return false;
+    if (store != kStoreRegs) return true;
+#define REPRO_HAS_WIDE(C_) \
+  if (vpt == C_) return true;
+    REPRO_WIDE_REG_CHUNKS(REPRO_HAS_WIDE)
+#undef REPRO_HAS_WIDE
+    return false;
+  }
+  if (lanes <= 0 || lanes > 32 || lanes * vpt < w || store != kStoreRegs)
+    return false;
 #define REPRO_HAS(L_, V_) \
   if (lanes == L_ && vpt == V_) return true;
   REPRO_LAYOUTS(REPRO_HAS)
@@ -320,8 +414,8 @@ bool layout_ok(int dtype, int w, int lanes, int vpt) {
   return false;
 }
 
-long long blocks_for(long long n, int w, int lanes) {
-  if (w > kNarrowMaxWidth) return n;  // one block a row
+long long blocks_for(long long n, int lanes) {
+  if (lanes == kWideThreads) return n;  // one block a row
   const long long rows_per_block = (long long)(kThreads / 32) * (32 / lanes);
   return (n + rows_per_block - 1) / rows_per_block;
 }
@@ -331,7 +425,7 @@ struct Args {
   void *x, *g;
   float *partials, *rows;
   long long n;
-  int w, m, J, iters, lanes, vpt, nb;
+  int w, m, J, iters, lanes, vpt, store, nb;
   cudaStream_t stream;
 };
 
@@ -344,21 +438,26 @@ void launch_rows(const Args& p) {
       p.n, p.w, p.m, p.J, p.iters);
 }
 
-template <typename T, bool kGvals>
-void launch_wide(const Args& p) {
-  auto fn = dual_x_wide_kernel<T, kGvals>;
-  const size_t smem = wide_smem_bytes(fn, p.w);
+template <typename T, int kC, bool kGvals>
+void launch_wide_chunk(const Args& p) {
+  auto fn = dual_x_wide_kernel<T, kC, kGvals>;
+  const size_t smem = wide_smem_bytes(fn, p.vpt, p.store);
   fn<<<p.nb, kWideThreads, smem, p.stream>>>(
       (const T*)p.a, (const T*)p.c, (const int32_t*)p.dest,
       (const uint8_t*)p.mask, (const T*)p.ub, (const T*)p.s,
       (const float*)p.lam, (const T*)p.gamma, (T*)p.x, (T*)p.g, p.partials,
-      p.rows, p.w, p.m, p.J, p.iters);
+      p.rows, p.w, p.m, p.J, p.iters, p.vpt, p.store);
 }
 
+// (`layout_ok` has checked the layout.)
 template <typename T, bool kGvals>
 void dispatch(const Args& p) {
-  if (p.w > kNarrowMaxWidth) {
-    launch_wide<T, kGvals>(p);
+  if (p.lanes == kWideThreads) {
+    if (p.store != kStoreRegs) return launch_wide_chunk<T, 0, kGvals>(p);
+#define REPRO_WIDE(C_) \
+  if (p.vpt == C_) return launch_wide_chunk<T, C_, kGvals>(p);
+    REPRO_WIDE_REG_CHUNKS(REPRO_WIDE)
+#undef REPRO_WIDE
     return;
   }
 #define REPRO_ROWS(L_, V_)                    \
@@ -375,8 +474,8 @@ void dispatch(const Args& p) {
 
 int launch(int dtype, Args p, void* cx, void* xsq, void* scratch) {
   if (p.n <= 0 || p.w <= 0 || p.m <= 0) return -1;
-  if (!layout_ok(dtype, p.w, p.lanes, p.vpt)) return -1;
-  const long long nb = blocks_for(p.n, p.w, p.lanes);
+  if (!layout_ok(dtype, p.w, p.lanes, p.vpt, p.store)) return -1;
+  const long long nb = blocks_for(p.n, p.lanes);
   if (nb > 0x7fffffffLL) return -1;
   p.nb = (int)nb;
   p.partials = (float*)scratch;
@@ -401,29 +500,31 @@ int launch(int dtype, Args p, void* cx, void* xsq, void* scratch) {
 extern "C" {
 
 // Length of the float scratch vector `dual_x_launch` / `dual_grad_launch`
-// need for a slab of n rows of width w at `lanes` lanes a row: the
-// per-block partials, and the global row buffer of rows too wide for
-// shared memory.
-long long dual_x_scratch(long long n, int w, int lanes) {
+// need for a slab of n rows at the layout (lanes, vpt, store): the
+// per-block partials, and the global rows of a wide layout staged there.
+long long dual_x_scratch(long long n, int lanes, int vpt, int store) {
   using namespace repro_torch;
-  if (lanes <= 0 || lanes > 32) return -1;
-  long long len = 2 * blocks_for(n, w, lanes);
-  if (w > kNarrowMaxWidth && !wide_in_smem(w)) len += 2 * n * (long long)w;
-  return len;
+  if (lanes <= 0 || (lanes > 32 && lanes != kWideThreads)) return -1;
+  return 2 * blocks_for(n, lanes) +
+         (lanes == kWideThreads ? n * wide_scratch_row(vpt, store) : 0);
 }
 
-// K1: launches the slab kernel and the partial-sum pass on `stream`, rows
-// up to 1,024 wide at the layout (lanes, vpt) (ignored for wider rows).
-// Returns cudaGetLastError() (0 on success), or -1 for a shape, layout or
-// type it does not take.
+// K1: launches the slab kernel and the partial-sum pass on `stream` at
+// the layout (lanes, vpt, store): a group of `lanes` <= 32 lanes a row,
+// each holding `vpt` contiguous values in registers (store 0); or one
+// block of 256 threads a row (lanes 256), each holding a chunk of `vpt`
+// values where `store` says (0 registers, 1 shared memory, 2 global
+// scratch).  Returns cudaGetLastError() (0 on success), or -1 for a
+// shape, layout or type it does not take.
 int dual_x_launch(int dtype, const void* a, const void* c, const void* dest,
                   const void* mask, const void* ub, const void* s,
                   const void* lam, const void* gamma, void* x,
                   void* scratch, void* cx, void* xsq, long long n, int w,
-                  int m, int J, int iters, int lanes, int vpt, void* stream) {
+                  int m, int J, int iters, int lanes, int vpt, int store,
+                  void* stream) {
   repro_torch::Args p{a, c, dest, mask, ub, s, lam, gamma, x, nullptr,
-                      nullptr, nullptr, n, w, m, J, iters, lanes, vpt, 0,
-                      (cudaStream_t)stream};
+                      nullptr, nullptr, n, w, m, J, iters, lanes, vpt,
+                      store, 0, (cudaStream_t)stream};
   return repro_torch::launch(dtype, p, cx, xsq, scratch);
 }
 
@@ -434,11 +535,11 @@ int dual_grad_launch(int dtype, const void* a, const void* c,
                      const void* s, const void* lam, const void* gamma,
                      void* x, void* gvals, void* scratch, void* cx,
                      void* xsq, long long n, int w, int m, int J, int iters,
-                     int lanes, int vpt, void* stream) {
+                     int lanes, int vpt, int store, void* stream) {
   if (gvals == nullptr) return -1;
   repro_torch::Args p{a, c, dest, mask, ub, s, lam, gamma, x, gvals,
-                      nullptr, nullptr, n, w, m, J, iters, lanes, vpt, 0,
-                      (cudaStream_t)stream};
+                      nullptr, nullptr, n, w, m, J, iters, lanes, vpt,
+                      store, 0, (cudaStream_t)stream};
   return repro_torch::launch(dtype, p, cx, xsq, scratch);
 }
 

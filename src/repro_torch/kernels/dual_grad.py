@@ -11,8 +11,12 @@ plain version (`ref.dual_x_ref`, `ref.dual_grad_ref`).  Nothing else: a
 build or launch failure raises.  Rows of any width run.
 
 Rows up to 1,024 wide run at the layout `row_layout(w)`: L lanes a row,
-each holding VPT contiguous columns.  `ref.dual_x_lanes_ref` repeats the
-kernels' order of the sums in that layout, bit for bit.
+each holding VPT contiguous columns.  Wider rows run one block of 256
+threads a row, thread t holding C contiguous columns (`ref.block_layout`),
+in registers or staged in memory (`wide_store`).  This module decides the
+layout; the kernels take it as given and refuse one they have no
+instance for.  `ref.dual_x_lanes_ref` and `ref.dual_x_block_ref` repeat
+the kernels' order of the sums in those layouts, bit for bit.
 """
 from __future__ import annotations
 
@@ -21,14 +25,24 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
-from .ref import dual_grad_ref, dual_x_ref
+from .ref import (NARROW_MAX_WIDTH, WIDE_THREADS, block_layout,
+                  dual_grad_ref, dual_x_ref)
 
 DEFAULT_ITERS = 40
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-NARROW_MAX_WIDTH = 1024   # wider rows run one block a row, with no layout
 # values a lane: the fastest of 4, 8 and 16 on the main path's slabs
 # (chip_smoke.py times all three)
 VPT = 8
+# values a thread of a wide row moves by one vector load or store
+# (common.cuh kWidePiece)
+WIDE_PIECE = 8
+# where a wide row's chunks live (common.cuh kStoreRegs, kStoreShared,
+# kStoreGlobal), the chunks C with a register instance of every wide
+# kernel (REPRO_WIDE_REG_CHUNKS), and the dynamic shared memory a block
+# may take on an H100 (kMaxSharedBytes)
+STORE_REGS, STORE_SHARED, STORE_GLOBAL = 0, 1, 2
+WIDE_REG_CHUNKS = (8, 16, 32)
+MAX_SHARED_BYTES = 227 * 1024
 
 
 def row_layout(w: int, vpt: int = VPT) -> Optional[Tuple[int, int]]:
@@ -46,36 +60,42 @@ def row_layout(w: int, vpt: int = VPT) -> Optional[Tuple[int, int]]:
     return p // v, v
 
 
-def _vec_bytes(nbytes: int) -> int:
-    """The width of the kernels' vector loads of a chunk of `nbytes`
-    bytes (common.cuh `vec_bytes`)."""
-    return next(b for b in (16, 8, 4, 2, 1) if nbytes % b == 0)
+def kernel_layout(w: int, vpt: int = VPT) -> Tuple[int, int]:
+    """The kernels' layout of a row of width w: `row_layout` up to 1,024,
+    (256, C) of `ref.block_layout` past it."""
+    return row_layout(w, vpt) or block_layout(w)
 
 
-def _check_aligned(fn_name, tensors, w, m, layout):
-    """Raise unless every pointer the kernel's vector loads and stores
-    touch is aligned to their width.  They run when w is a multiple of
-    VPT, as every power-of-two width is; a and gvals take them for m <= 2
-    only."""
-    if layout is None or w % layout[1]:
-        return
-    for name, t in tensors.items():
-        per_entry = m if name in ("a_vals", "gvals") else 1
-        if t is None or per_entry > 2:
-            continue
-        nb = _vec_bytes(layout[1] * per_entry * t.element_size())
-        if t.data_ptr() % nb:
-            raise ValueError(
-                f"{fn_name}: {name} must be {nb}-byte aligned for the "
-                f"kernel's vector loads (address {t.data_ptr():#x})")
+def wide_store(chunk: int) -> int:
+    """Where a wide row's chunks of `chunk` values live: registers where
+    the kernels have an instance for it (C = 8, 16, 32: up to 8,192
+    wide), else staged in shared memory while v and ub fit there (up to
+    16,384), else in global scratch."""
+    if chunk in WIDE_REG_CHUNKS:
+        return STORE_REGS
+    if 2 * 4 * chunk * WIDE_THREADS <= MAX_SHARED_BYTES:
+        return STORE_SHARED
+    return STORE_GLOBAL
+
+
+def layout_store(layout) -> int:
+    """The storage of a layout: registers for a group of lanes,
+    `wide_store` for a block."""
+    return STORE_REGS if layout[0] <= 32 else wide_store(layout[1])
+
+
+def vector_values(layout) -> int:
+    """The values of a row that one of the kernels' vector loads moves at
+    `layout`: VPT for a group of lanes, WIDE_PIECE for a block."""
+    return layout[1] if layout[0] <= 32 else WIDE_PIECE
 
 
 def _launch(wrapper, a_vals, c_vals, dest_idx, mask, ub, s, lam, gamma,
-            iters, out, gvals, layout=None):
+            iters, out, gvals, layout=None, store=None):
     """Check the card's tensors, allocate x when the caller gave no `out`,
     and launch K1 (`gvals` None) or K3 (writing `gvals`) at `layout`
-    (default `row_layout(w)`), counting the launch on `wrapper`.  Returns
-    (x, c_x, x_sq)."""
+    (default `kernel_layout(w)`) and `store` (default `layout_store`),
+    counting the launch on `wrapper`.  Returns (x, c_x, x_sq)."""
     fn_name = wrapper.__name__
     n, w, m = a_vals.shape
     dtype, dev = c_vals.dtype, c_vals.device
@@ -100,15 +120,16 @@ def _launch(wrapper, a_vals, c_vals, dest_idx, mask, ub, s, lam, gamma,
     if n == 0 or w == 0:
         zero = torch.zeros((), dtype=torch.float32, device=dev)
         return out, zero, zero.clone()
-    layout = layout or row_layout(w)
-    _check_aligned(fn_name, {"a_vals": a_vals, "c_vals": c_vals,
-                             "dest_idx": dest_idx, "mask": mask, "ub": ub,
-                             "out": out, "gvals": gvals}, w, m, layout)
-    lanes, vpt = layout or (1, 1)         # unused past 1,024: a block a row
+    lanes, vpt = layout = layout or kernel_layout(w)
+    store = layout_store(layout) if store is None else store
+    _build.check_aligned(fn_name, {"a_vals": a_vals, "c_vals": c_vals,
+                                   "dest_idx": dest_idx, "mask": mask,
+                                   "ub": ub, "out": out, "gvals": gvals},
+                         w, m, vector_values(layout))
     c_x = torch.empty((), dtype=torch.float32, device=dev)
     x_sq = torch.empty((), dtype=torch.float32, device=dev)
     lib = _build.build()["dual_x"]
-    scratch = torch.empty(int(lib.dual_x_scratch(n, w, lanes)),
+    scratch = torch.empty(int(lib.dual_x_scratch(n, lanes, vpt, store)),
                           dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     ptrs = [a_vals.data_ptr(), c_vals.data_ptr(), dest_idx.data_ptr(),
@@ -117,12 +138,12 @@ def _launch(wrapper, a_vals, c_vals, dest_idx, mask, ub, s, lam, gamma,
     if gvals is None:
         rc = lib.dual_x_launch(_DTYPES[dtype], *ptrs, scratch.data_ptr(),
                                c_x.data_ptr(), x_sq.data_ptr(), n, w, m, J,
-                               int(iters), lanes, vpt, stream)
+                               int(iters), lanes, vpt, store, stream)
     else:
         rc = lib.dual_grad_launch(_DTYPES[dtype], *ptrs, gvals.data_ptr(),
                                   scratch.data_ptr(), c_x.data_ptr(),
                                   x_sq.data_ptr(), n, w, m, J, int(iters),
-                                  lanes, vpt, stream)
+                                  lanes, vpt, store, stream)
     _build.check(rc, f"{fn_name} kernel launch")
     wrapper.launches += 1
     return out, c_x, x_sq

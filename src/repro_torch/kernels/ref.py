@@ -6,8 +6,10 @@ The wrappers in `dual_grad.py`, `ax_reduce.py` and `proj.py` run them for
 tensors on the CPU; `chip_smoke.py` and the tests hold each kernel against them on
 the card.  Only the order of the floating-point sums differs, except in
 the kernel-order versions (`dual_x_lanes_ref`, `dual_grad_lanes_ref`,
-`ax_items_ref`), which repeat the kernels' order too and equal them bit
-for bit in float32.
+`proj_lanes_ref` on rows up to 1,024 wide; `dual_x_block_ref`,
+`dual_grad_block_ref`, `proj_block_ref` on wider rows; `ax_items_ref`),
+which repeat the kernels' order too and equal them bit for bit in
+float32.
 """
 from __future__ import annotations
 
@@ -78,6 +80,18 @@ def dual_grad_ref(a_vals, c_vals, dest_idx, mask, ub, s, lam, gamma,
 
 KNEG = -1e30          # the kernels' fill for entries a row does not own
 WARP, BLOCK_WARPS, PARTIAL_THREADS = 32, 8, 1024   # dual_x.cu's launch shape
+WIDE_THREADS = BLOCK_WARPS * WARP   # threads of a row's block past 1,024
+NARROW_MAX_WIDTH = 1024   # the widest row a group of lanes holds
+
+
+def block_layout(w: int):
+    """(WIDE_THREADS, C) of a row of width w > 1,024, the kernels' wide
+    path: one block a row, thread t holding columns [t·C, (t+1)·C), C the
+    next power of two of w over 256 (8, 16, 32 at 2,048, 4,096, 8,192)."""
+    if w <= NARROW_MAX_WIDTH:
+        raise ValueError(f"rows of width {w} <= {NARROW_MAX_WIDTH} run on "
+                         f"a group of lanes, not a block")
+    return WIDE_THREADS, (1 << (w - 1).bit_length()) // WIDE_THREADS
 
 
 def _clip(t, ub):
@@ -115,36 +129,39 @@ def _lane_sums(t, layout):
 
 
 def lanes_u(a_vals, c_vals, dest_idx, mask, ub, lam, gamma, layout):
-    """(v, ub) of a slab as K1 and K3 hold them at `layout` (L, VPT):
+    """(v, ub) of a slab as K1 and K3 hold them at `layout` (L, VPT), or
+    (256, C) on the wide path:
     float32 (n, L·VPT), v = u = −(Σ_k a_k λ_k[dest] + c)/γ in the kernels'
     order at real entries, KNEG (and ub 0) on padding and past the
     width."""
     n, w, m = a_vals.shape
-    dev = a_vals.device
     d = torch.where(mask, dest_idx, torch.zeros_like(dest_idx)).long()
-    atl = torch.zeros((n, w), dtype=torch.float32, device=dev)
+    atl = torch.zeros((n, w), dtype=torch.float32, device=a_vals.device)
     for k in range(m):
         atl = atl + a_vals[:, :, k].float() * lam[k][d]
     u = -(atl + c_vals.float()) / gamma.float()
-    P = layout[0] * layout[1]
-    v = torch.full((n, P), KNEG, dtype=torch.float32, device=dev)
-    ubp = torch.zeros((n, P), dtype=torch.float32, device=dev)
-    v[:, :w] = torch.where(mask, u, torch.full_like(u, KNEG))
-    ubp[:, :w] = torch.where(mask, ub.float(), torch.zeros_like(u))
-    return v, ubp
+    return pad_rows(u, ub, mask, layout[0] * layout[1])
 
 
-def bisect_lanes_ref(v, ub, s, iters: int, layout, early_exit: bool = True):
-    """τ of each row of (v, ub) (n, L·VPT) and the steps each row ran, in
-    the order of K1's and K3's sums (`common.cuh::boxcut_tau_chunk`).
+def _block_sums(t):
+    """Row sums of t (rows, 256·C) in the order of the kernels' wide path
+    (`common.cuh::boxcut_tau_block`): each thread sums its chunk of C in
+    order, each warp runs the xor butterfly over its 32 threads, then the
+    8 warp sums are added in warp order."""
+    n = t.shape[0]
+    chunks = _chunk_sums(t, (WIDE_THREADS, t.shape[1] // WIDE_THREADS))
+    warps = _butterfly(chunks.reshape(-1, WARP)).reshape(n, BLOCK_WARPS)
+    acc = torch.zeros(n, dtype=torch.float32, device=t.device)
+    for i in range(BLOCK_WARPS):
+        acc = acc + warps[:, i]
+    return acc
 
-    With `early_exit`, a row with f0 <= s runs no step, and a row stops
-    after the step in which mid == lo or mid == hi, once its update is
-    applied; otherwise every row runs all `iters` steps.  Both give the
-    same τ bit for bit.  Maxima and clips drop NaN, as the kernels'
-    fmaxf and fminf do.  Returns (τ (n,) float32, steps (n,) int64)."""
+
+def _bisect(v, ub, s, iters, row_sums, early_exit):
+    """τ and steps of each row of (v, ub), its sums in `row_sums`' order;
+    see `bisect_lanes_ref`."""
     s = s.float()
-    f0 = _lane_sums(_clip(v, ub), layout)
+    f0 = row_sums(_clip(v, ub))
     need = f0 > s
     hi = torch.where(v.isnan(), torch.full_like(v, KNEG), v).amax(
         dim=1).clamp_min(KNEG)
@@ -156,7 +173,7 @@ def bisect_lanes_ref(v, ub, s, iters: int, layout, early_exit: bool = True):
         if early_exit and not bool(live.any()):
             break
         mid = 0.5 * (lo + hi)
-        big = _lane_sums(_clip(v - mid[:, None], ub), layout) > s
+        big = row_sums(_clip(v - mid[:, None], ub)) > s
         if early_exit:
             done = done | (mid == lo) | (mid == hi)
         lo = torch.where(live & big, mid, lo)
@@ -166,15 +183,77 @@ def bisect_lanes_ref(v, ub, s, iters: int, layout, early_exit: bool = True):
     return tau, steps
 
 
+def bisect_lanes_ref(v, ub, s, iters: int, layout, early_exit: bool = True):
+    """τ of each row of (v, ub) (n, L·VPT) and the steps each row ran, in
+    the order of the register path's sums (`common.cuh::boxcut_tau_chunk`,
+    K1, K3 and K5 on rows up to 1,024 wide).
+
+    With `early_exit`, a row with f0 <= s runs no step, and a row stops
+    after the step in which mid == lo or mid == hi, once its update is
+    applied; otherwise every row runs all `iters` steps.  Both give the
+    same τ bit for bit.  Maxima and clips drop NaN, as the kernels'
+    fmaxf and fminf do.  Returns (τ (n,) float32, steps (n,) int64)."""
+    return _bisect(v, ub, s, iters, lambda t: _lane_sums(t, layout),
+                   early_exit)
+
+
+def bisect_block_ref(v, ub, s, iters: int, early_exit: bool = True):
+    """`bisect_lanes_ref` for rows of (v, ub) (n, 256·C) held by a block,
+    in the order of the wide path's sums (`common.cuh::boxcut_tau_block`,
+    K1, K3 and K5 on rows wider than 1,024).  Returns (τ, steps)."""
+    return _bisect(v, ub, s, iters, _block_sums, early_exit)
+
+
+def pad_rows(v, ub, mask, width):
+    """(v, ub) of an (n, w) slab as the kernels hold them in float32, (n,
+    `width`): v and ub at real entries; KNEG and 0 on padding and past w."""
+    n, w = v.shape
+    vp = torch.full((n, width), KNEG, dtype=torch.float32, device=v.device)
+    ubp = torch.zeros((n, width), dtype=torch.float32, device=v.device)
+    vp[:, :w] = torch.where(mask, v.float(), torch.full_like(vp[:, :w], KNEG))
+    ubp[:, :w] = torch.where(mask, ub.float(), torch.zeros_like(ubp[:, :w]))
+    return vp, ubp
+
+
+def _proj_order(v, ub, s, mask, iters, width, bisect):
+    n, w = v.shape
+    vp, ubp = pad_rows(v, ub, mask, width)
+    tau, _ = bisect(vp, ubp, s, iters)
+    x = torch.where(mask, _clip(vp[:, :w] - tau[:, None], ubp[:, :w]),
+                    torch.zeros_like(tau)[:, None])
+    return x.to(v.dtype)
+
+
+def proj_lanes_ref(v, ub, s, mask, iters: int, layout,
+                   early_exit: bool = True):
+    """`proj_boxcut_ref` in the order of K5's sums at `layout` (L, VPT) =
+    `dual_grad.row_layout(w)` (rows up to 1,024 wide), early exit or the
+    fixed count (the same bits): equal to K5 bit for bit in float32, and,
+    fed a slab's u, to `dual_x_lanes_ref`'s x."""
+    if layout is None:
+        raise ValueError("proj_lanes_ref: rows wider than 1,024 have no "
+                         "lane layout (proj_block_ref)")
+    return _proj_order(v, ub, s, mask, iters, layout[0] * layout[1],
+                       lambda *a: bisect_lanes_ref(*a, layout, early_exit))
+
+
+def proj_block_ref(v, ub, s, mask, iters: int, early_exit: bool = True):
+    """`proj_lanes_ref` for rows wider than 1,024, in the order of K5's
+    wide path: equal to it bit for bit in float32."""
+    L, C = block_layout(v.shape[1])
+    return _proj_order(v, ub, s, mask, iters, L * C,
+                       lambda *a: bisect_block_ref(*a, early_exit))
+
+
 def _block_order_sum(t, mask, layout):
     """Σ of t (n, w) over the real entries in dual_x.cu's order: each lane
-    over its chunk, the warp's xor butterfly over its 32 lanes (32/L rows),
-    the block's 8 warp sums in order, then the one-block pass over the
-    block partials (1,024 threads, each striding over the partials, then a
-    halving tree)."""
+    over its chunk, the warp's xor butterfly over its 32 lanes (32/L rows,
+    or a 32nd of a wide row's block), the block's 8 warp sums in order,
+    then the one-block pass over the block partials (1,024 threads, each
+    striding over the partials, then a halving tree)."""
     n, w = t.shape
     L, V = layout
-    rows = BLOCK_WARPS * (WARP // L)               # rows a block
+    rows = WIDE_THREADS // L                       # rows a block
     nb = -(-n // rows)
     dev = t.device
     full = torch.zeros((nb * rows, L * V), dtype=torch.float32, device=dev)
@@ -198,6 +277,26 @@ def _block_order_sum(t, mask, layout):
     return tot[0]
 
 
+def _dual_x_order(a_vals, c_vals, dest_idx, mask, ub, s, lam, gamma, iters,
+                  layout, bisect):
+    """x, c_x, x_sq of K1 in its order of the sums at `layout`, τ from
+    `bisect` at the fixed count."""
+    w = c_vals.shape[1]
+    v, ubp = lanes_u(a_vals, c_vals, dest_idx, mask, ub, lam, gamma, layout)
+    tau, _ = bisect(v, ubp, s, iters)
+    x = torch.where(mask, _clip(v[:, :w] - tau[:, None], ubp[:, :w]),
+                    torch.zeros_like(tau)[:, None])
+    c_x = _block_order_sum(c_vals.float() * x, mask, layout)
+    x_sq = _block_order_sum(x * x, mask, layout)
+    return x.to(c_vals.dtype), c_x, x_sq
+
+
+def _with_gvals(a_vals, mask, x, c_x, x_sq):
+    prod = a_vals * x.to(a_vals.dtype)[..., None]
+    gvals = torch.where(mask[..., None], prod, torch.zeros_like(prod))
+    return x, gvals, c_x, x_sq
+
+
 def dual_x_lanes_ref(a_vals, c_vals, dest_idx, mask, ub, s, lam, gamma,
                      iters: int, layout):
     """`dual_x_ref` in the order of K1's sums at `layout` (L, VPT) =
@@ -207,25 +306,36 @@ def dual_x_lanes_ref(a_vals, c_vals, dest_idx, mask, ub, s, lam, gamma,
     if layout is None:
         raise ValueError("dual_x_lanes_ref: rows wider than 1,024 have no "
                          "lane layout")
-    w = c_vals.shape[1]
-    v, ubp = lanes_u(a_vals, c_vals, dest_idx, mask, ub, lam, gamma, layout)
-    tau, _ = bisect_lanes_ref(v, ubp, s, iters, layout, early_exit=False)
-    x = torch.where(mask, _clip(v[:, :w] - tau[:, None], ubp[:, :w]),
-                    torch.zeros_like(tau)[:, None])
-    c_x = _block_order_sum(c_vals.float() * x, mask, layout)
-    x_sq = _block_order_sum(x * x, mask, layout)
-    return x.to(c_vals.dtype), c_x, x_sq
+    return _dual_x_order(
+        a_vals, c_vals, dest_idx, mask, ub, s, lam, gamma, iters, layout,
+        lambda *a: bisect_lanes_ref(*a, layout, early_exit=False))
 
 
 def dual_grad_lanes_ref(a_vals, c_vals, dest_idx, mask, ub, s, lam, gamma,
                         iters: int, layout):
     """`dual_x_lanes_ref` plus gvals = a ⊙ x in a's dtype, 0 on padding:
     equal to K3 bit for bit in float32.  Returns (x, gvals, c_x, x_sq)."""
-    x, c_x, x_sq = dual_x_lanes_ref(a_vals, c_vals, dest_idx, mask, ub, s,
-                                    lam, gamma, iters, layout)
-    prod = a_vals * x.to(a_vals.dtype)[..., None]
-    gvals = torch.where(mask[..., None], prod, torch.zeros_like(prod))
-    return x, gvals, c_x, x_sq
+    return _with_gvals(a_vals, mask, *dual_x_lanes_ref(
+        a_vals, c_vals, dest_idx, mask, ub, s, lam, gamma, iters, layout))
+
+
+def dual_x_block_ref(a_vals, c_vals, dest_idx, mask, ub, s, lam, gamma,
+                     iters: int):
+    """`dual_x_ref` in the order of K1's wide path (rows wider than 1,024:
+    a block a row, `block_layout`), with the fixed count of bisection
+    steps: equal to K1 bit for bit in float32.  Returns (x, c_x, x_sq)."""
+    return _dual_x_order(
+        a_vals, c_vals, dest_idx, mask, ub, s, lam, gamma, iters,
+        block_layout(c_vals.shape[1]),
+        lambda *a: bisect_block_ref(*a, early_exit=False))
+
+
+def dual_grad_block_ref(a_vals, c_vals, dest_idx, mask, ub, s, lam, gamma,
+                        iters: int):
+    """`dual_x_block_ref` plus gvals = a ⊙ x: equal to K3 bit for bit in
+    float32.  Returns (x, gvals, c_x, x_sq)."""
+    return _with_gvals(a_vals, mask, *dual_x_block_ref(
+        a_vals, c_vals, dest_idx, mask, ub, s, lam, gamma, iters))
 
 
 def ax_reduce_x_ref(x, a_dm, edge_idx, mask):

@@ -24,8 +24,9 @@ from hypothesis import strategies as st
 
 from repro.kernels import dual_grad as rdg
 from repro_torch.kernels import ref
-from repro_torch.kernels.dual_grad import (NARROW_MAX_WIDTH, _check_aligned,
-                                           row_layout)
+from repro_torch.kernels._build import check_aligned
+from repro_torch.kernels.dual_grad import (NARROW_MAX_WIDTH, row_layout,
+                                           vector_values)
 
 CSRC = (Path(__file__).resolve().parents[1] / "src" / "repro_torch" /
         "kernels" / "csrc" / "dual_x.cu")
@@ -243,9 +244,10 @@ def test_misaligned_pointer_is_refused():
     boundary is refused where the vector loads would touch it."""
     buf = torch.zeros(4 * 32 + 1)
     good, bad = buf[:128].view(4, 32), buf[1:129].view(4, 32)
-    _check_aligned("dual_x_slab", {"out": good}, 32, 1, row_layout(32))
+    vals = vector_values(row_layout(32))
+    check_aligned("dual_x_slab", {"out": good}, 32, 1, vals)
     with pytest.raises(ValueError, match="aligned"):
-        _check_aligned("dual_x_slab", {"out": bad}, 32, 1, row_layout(32))
+        check_aligned("dual_x_slab", {"out": bad}, 32, 1, vals)
     # a width that is not a multiple of VPT takes no vector loads
-    _check_aligned("dual_x_slab", {"out": buf[1:25].view(4, 6)}, 6, 1,
-                   row_layout(6))
+    check_aligned("dual_x_slab", {"out": buf[1:25].view(4, 6)}, 6, 1,
+                  vector_values(row_layout(6)))

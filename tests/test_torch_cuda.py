@@ -7,7 +7,10 @@ Every test is marked `cuda` and skips where no NVIDIA GPU is present.
 
 Tolerances: float32 x at atol 1e-4 and the scalars at rtol 1e-5 (only the
 order of float32 sums differs between kernel and plain version); bfloat16
-at 5e-2 (one bf16 rounding of x, of order 2⁻⁸ relative).
+at 5e-2 (one bf16 rounding of x, of order 2⁻⁸ relative).  Against their
+kernel-order plain versions (`ref.*_lanes_ref`, `ref.*_block_ref`,
+`ref.ax_items_ref`), which repeat the kernels' order of the sums, the
+kernels are held bit for bit.
 """
 import numpy as np
 import pytest
@@ -230,11 +233,11 @@ def test_proj_kernel_matches_plain(dev, w, dtype):
                                xr.float().cpu().numpy(), atol=tol)
 
 
-@pytest.mark.parametrize("w", [64, 1024, 2048, 8192])
+@pytest.mark.parametrize("w", [64, 1024, 2048, 8192, 32768])
 def test_proj_of_u_gives_dual_x(dev, w):
-    """K5 fed a slab's pre-projection u gives K1's x to atol 1e-4 (the
-    same projection; K5 sums a row in its own lanes' order, K1 in
-    contiguous chunks with an early exit)."""
+    """K5 fed a slab's pre-projection u gives K1's x bit for bit: the same
+    layout (lanes up to 1,024, a block a row past it), the same sums and
+    the same stopping rule."""
     rng = np.random.default_rng(w + 9)
     n, J = _rows(w), 97
     a, c, dest, mask, ub, s, lam = (torch.from_numpy(v).to(dev) for v in
@@ -243,7 +246,143 @@ def test_proj_of_u_gives_dual_x(dev, w):
     x1, _, _ = dual_x_slab(a, c, dest, mask, ub, s, lam, gamma)
     u = -(a[:, :, 0] * lam[0][dest.long()] + c) / gamma
     x5 = proj_boxcut(u, ub, s, mask)
-    np.testing.assert_allclose(x5.cpu().numpy(), x1.cpu().numpy(), atol=1e-4)
+    assert torch.equal(x5, x1)
+
+
+def _order_ref(v, ub, s, mask, iters=40):
+    """K5's kernel-order plain version for rows of v's width."""
+    w = v.shape[1]
+    if w > 1024:
+        return ref.proj_block_ref(v, ub, s, mask, iters)
+    return ref.proj_lanes_ref(v, ub, s, mask, iters, row_layout(w))
+
+
+@pytest.mark.parametrize("w", [4, 16, 64, 100, 1024, 1500, 2048, 8192,
+                               32768])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_proj_kernel_equals_order_ref(dev, w, dtype):
+    """K5 equals its kernel-order plain version (`proj_lanes_ref`, or
+    `proj_block_ref` past 1,024) bit for bit, twice; widths 100 and 1,500
+    take the value-by-value loads."""
+    rng = np.random.default_rng(w + 6)
+    n = _rows(w)
+    deg = rng.integers(0, w + 1, size=n)
+    mask = ((np.arange(w)[None, :] < deg[:, None])
+            & (rng.random((n, w)) < 0.9))
+    v = np.where(mask, rng.uniform(-1.0, 2.0, (n, w)), 0)
+    ub = np.where(mask, rng.uniform(0.5, 1.0, (n, w)), 0)
+    s = np.where(rng.random(n) < 0.3, 1e6, rng.uniform(0.5, 4.0, n))
+    vt, ubt, st = (torch.from_numpy(t).to(dev).to(dtype) for t in (v, ub, s))
+    mt = torch.from_numpy(mask).to(dev)
+    runs = [proj_boxcut(vt, ubt, st, mt) for _ in range(2)]
+    assert torch.equal(runs[0], runs[1])
+    assert torch.equal(runs[0], _order_ref(vt, ubt, st, mt))
+
+
+@pytest.mark.parametrize("w", [1500, 2048, 8192, 16384, 32768])
+@pytest.mark.parametrize("m", [1, 2, 3])
+def test_wide_kernels_equal_block_ref(dev, w, m):
+    """K1, K3 and K5 on rows wider than 1,024 (chunks in registers up to
+    8,192, in shared memory up to 16,384, in global scratch past it) equal
+    their block-order plain versions bit for bit at γ = 0.001: x, gvals
+    (vector stores for m <= 2, value by value for m = 3 and at w = 1,500),
+    cᵀx, ‖x‖²; K5 fed u gives K1's x; two runs give the same bits."""
+    rng = np.random.default_rng(w * 17 + m)
+    n, J = _rows(w), 97
+    a, c, dest, mask, ub, s, lam = (torch.from_numpy(v).to(dev) for v in
+                                    _hard_slab(rng, n, w, m, J))
+    gamma = torch.full((), 0.001, device=dev)
+    xr, gr, cxr, xsqr = ref.dual_grad_block_ref(a, c, dest, mask, ub, s, lam,
+                                                gamma, 40)
+    runs = [dual_x_slab(a, c, dest, mask, ub, s, lam, gamma)
+            for _ in range(2)]
+    for u, v in zip(*runs):
+        assert torch.equal(u, v)
+    x, cx, xsq = runs[0]
+    assert torch.equal(x, xr) and torch.equal(cx, cxr)
+    assert torch.equal(xsq, xsqr)
+    x3, g3, cx3, xsq3 = dual_grad_slab(a, c, dest, mask, ub, s, lam, gamma)
+    assert torch.equal(x3, x) and torch.equal(g3, gr)
+    assert torch.equal(cx3, cx) and torch.equal(xsq3, xsq)
+    atl = torch.zeros_like(c)
+    for k in range(m):
+        atl = atl + a[:, :, k] * lam[k][dest.long()]
+    u = -(atl + c) / gamma
+    x5 = proj_boxcut(u, ub, s, mask)
+    assert torch.equal(x5, x)
+    assert torch.equal(x5, ref.proj_block_ref(u, ub, s, mask, 40))
+
+
+@pytest.mark.parametrize("w", [1500, 2048, 4096, 8192])
+@pytest.mark.parametrize("store", ["SHARED", "GLOBAL"])
+def test_wide_storage_gives_the_same_bits(dev, w, store):
+    """A wide row's chunks staged in shared memory or in global scratch,
+    at the layout the wrappers use, give the bits of its block-order
+    plain version, as the chunks in registers do: K1, K3 (gvals) and
+    K5."""
+    from repro_torch.kernels import dual_grad as dg
+    from repro_torch.kernels import proj
+    rng = np.random.default_rng(w + len(store))
+    n, m, J = 97, 2, 61
+    a, c, dest, mask, ub, s, lam = (torch.from_numpy(v).to(dev) for v in
+                                    _hard_slab(rng, n, w, m, J))
+    gamma = torch.full((), 0.001, device=dev)
+    st = getattr(dg, f"STORE_{store}")
+    lay = ref.block_layout(w)
+    xr, gr, cxr, xsqr = ref.dual_grad_block_ref(a, c, dest, mask, ub, s, lam,
+                                                gamma, 40)
+    x, cx, xsq = dg._launch(dual_x_slab, a, c, dest, mask, ub, s, lam, gamma,
+                            40, None, None, lay, st)
+    assert torch.equal(x, xr) and torch.equal(cx, cxr)
+    assert torch.equal(xsq, xsqr)
+    g = torch.empty_like(a)
+    x3, cx3, xsq3 = dg._launch(dual_grad_slab, a, c, dest, mask, ub, s, lam,
+                               gamma, 40, None, g, lay, st)
+    assert torch.equal(x3, xr) and torch.equal(g, gr)
+    assert torch.equal(cx3, cxr) and torch.equal(xsq3, xsqr)
+    atl = torch.zeros_like(c)
+    for k in range(m):
+        atl = atl + a[:, :, k] * lam[k][dest.long()]
+    u = -(atl + c) / gamma
+    assert torch.equal(proj._launch(u, ub, s, mask, 40, lay, st), xr)
+
+
+def test_wide_layout_without_instance_is_refused(dev):
+    """A wide layout the kernels have no instance for (chunks of 64 in
+    registers) or one that does not cover the row raises, and nothing is
+    launched: no fallback to another layout."""
+    from repro_torch.kernels import dual_grad as dg
+    from repro_torch.kernels import proj
+    n, w = 4, 16384
+    v = torch.zeros((n, w), device=dev)
+    mask = torch.ones((n, w), dtype=torch.bool, device=dev)
+    s = torch.ones(n, device=dev)
+    before = proj_boxcut.launches
+    for lay in ((256, 64), (256, 32)):
+        with pytest.raises(RuntimeError, match="not supported"):
+            proj._launch(v, v, s, mask, 40, lay, dg.STORE_REGS)
+    assert proj_boxcut.launches == before
+
+
+@pytest.mark.parametrize("w", [32, 2048])
+def test_proj_refuses_misaligned_input(dev, w):
+    """K5's vector loads need v, ub and the mask 16-byte aligned (8 bytes
+    for the mask at 8 values a lane): a v one float off is refused, not
+    launched."""
+    rng = np.random.default_rng(w)
+    n = 16
+    buf = torch.from_numpy(rng.uniform(-1, 2, n * w + 1).astype(
+        np.float32)).to(dev)
+    ub = torch.ones((n, w), device=dev)
+    s = torch.ones(n, device=dev)
+    mask = torch.ones((n, w), dtype=torch.bool, device=dev)
+    before = proj_boxcut.launches
+    with pytest.raises(ValueError, match="aligned"):
+        proj_boxcut(buf[1:].view(n, w), ub, s, mask)
+    assert proj_boxcut.launches == before
+    x = proj_boxcut(buf[:-1].view(n, w), ub, s, mask)
+    assert proj_boxcut.launches == before + 1
+    assert torch.equal(x, _order_ref(buf[:-1].view(n, w), ub, s, mask))
 
 
 def test_dual_x_kernel_is_deterministic(dev):
@@ -479,7 +618,7 @@ def test_aligned_gvals_equals_aligned_on_card(dev):
 @pytest.mark.parametrize("mode", ["scatter", "sorted"])
 def test_scatter_modes_on_card(dev, mode):
     """scatter and sorted on the card against the CPU's calculate, and
-    sorted repeatable bit for bit."""
+    both repeatable bit for bit (scatter's atomics sum in float64)."""
     lp_np = generate(InstanceSpec(num_sources=20000, num_destinations=300,
                                   avg_nnz_per_row=30, seed=2))
     out = {}
@@ -495,8 +634,7 @@ def test_scatter_modes_on_card(dev, mode):
     np.testing.assert_allclose(float(g1), float(gc), rtol=1e-5)
     np.testing.assert_allclose(d1.cpu().numpy(), dc.numpy(), rtol=1e-5,
                                atol=1e-4)
-    if mode == "sorted":
-        assert torch.equal(g1, g2) and torch.equal(d1, d2)
+    assert torch.equal(g1, g2) and torch.equal(d1, d2)
 
 
 def test_solve_on_card_matches_cpu(dev):

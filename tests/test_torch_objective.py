@@ -117,3 +117,16 @@ def test_slab_slices_aligned(pair):
     assert obj_t._xbuf.shape[0] == ends[-1]
     if min(s.width for s in obj_t.lp.slabs) < 4:
         assert obj_t._offsets != list(np.cumsum([0] + sizes[:-1]))
+
+
+def test_scatter_sum_is_order_free():
+    """The scatter mode's destination sum does not depend on the order of
+    the edges (on the card, of its atomics): it is the float64 sum rounded
+    once to float32, where a float32 sum in edge order loses the 1."""
+    from repro_torch.core.objectives import _segment_ax
+    vals = torch.tensor([[1e8], [1.0], [-1e8], [0.5], [3.0]])
+    dest = torch.tensor([0, 0, 0, 1, 1])
+    want = torch.tensor([[1.0, 3.5]])
+    assert float(vals[0] + vals[1] + vals[2]) == 0.0
+    for perm in ([0, 1, 2, 3, 4], [2, 4, 1, 0, 3], [1, 3, 2, 4, 0]):
+        assert torch.equal(_segment_ax(vals[perm], dest[perm], 2), want)

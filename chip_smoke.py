@@ -65,6 +65,26 @@ nothing of JAX or of the JAX package.  Phases, each failing loudly:
               bit-identical to aligned; then GlobalCountObjective (count row normalized)
               with the count at 90 % of the unconstrained sum of x, which
               must converge and bind
+  8. rules    the other update rules and the fault-tolerance path.  The
+              main path's instance (generated once in phase 3) through
+              the CLI entry point with --algorithm pdhg --certify:
+              converged, a valid certificate, K1 and K2 launched, its
+              final dual within 1e-3 relative of phase 3's agd dual; bb and
+              pga on its objective for a fixed 200 iterations each, finite.
+              On phase 3's objective: a guarded agd run equal to the
+              unguarded one bit for bit, a transient chunk fault rolled
+              back once and converging, a NaN objective stopping DIVERGED
+              after max_retries + 1 records, and pdhg preempted after 4
+              chunks, checkpointed to disk and resumed, equal bit for bit
+              to the uninterrupted run (lambda, iterations, dual
+              trajectory).  Parity: perf_lp/tol_pdhg and tol_bb twice each
+              in aligned, bit-identical, converged, duals within 1e-4 of
+              the reference's and stopping within one check of the
+              reference's own spread; pga's fixed 300 iterations within
+              1e-5 of the port's CPU run.  The CLI's --save-duals then
+              --warm-start (continuation skipped), --checkpoint-dir then
+              --resume (ending on the uninterrupted run's bits), and
+              --resume under another --algorithm (refused), at parity size
 
 The last three lines of standard output are the card's name and power
 limit, the kernels' JSON record, and {"ok": true, "device": {...}}.  Exits
@@ -109,6 +129,25 @@ PARITY_DUAL = -2340.354736328125       # perf_lp/tol_agd, bench_results.json
 # tol_rel_dual 1e-6 the stopping check moves with the summation order alone
 PARITY_ITERATIONS = (1600, 2150)
 PARITY_CHECK = 25
+# perf_lp/tol_pdhg and tol_bb (bench_results.json: 600 and 10,525
+# iterations), and the window their stop is held in: where the reference's
+# rule stops (JAX on a CPU, tests/torch_stop_iterations.py) in its own ax
+# modes (pdhg 850-1,225, bb 10,400-10,725) and on the port's objective
+# (pdhg 725, bb 11,725), with the recorded row.  At tol_rel_dual 1e-6 the
+# stop is float32 noise of the objective's sums, which the ax modes alone
+# do not sample: the port's rule on the reference's objective stops inside
+# the ax modes' window (pdhg 750, bb 10,650)
+RULE_PARITY = {"pdhg": (-2340.39697265625, (600, 1225)),
+               "bb": (-2340.354736328125, (10400, 11725))}
+# the port's dual after a fixed 300 pga iterations on the parity instance,
+# float32 on a CPU (tests/test_torch_rules.py, PGA_300_DUAL)
+PGA_300_DUAL = -2353.14990234375
+# the dual drift the main path's pdhg run may show against phase 3's agd
+MAIN_RULE_DRIFT = 1e-3
+RULE_ITERATIONS = 200   # bb's and pga's fixed run on the main path
+PARITY_ARGS = ["--sources", "2000", "--destinations", "1000",
+               "--nnz-per-row", "4", "--seed", "42", "--json",
+               "--device", "cuda"]
 # work tables (item size C, band entries) timed beside the default
 TABLE_SWEEP = ((2048, None), (1024, None), (4096, None), (1024, 1 << 22),
                (4096, 1 << 22), (2048, 1 << 21), (2048, 1 << 23))
@@ -1325,12 +1364,13 @@ def repeatability(obj, gamma):
 
 
 def parity_solve(lp_np, mode, count=None, normalized=True,
-                 max_iterations=None):
+                 max_iterations=None, algorithm="agd", fixed=None):
     """One perf_lp/tol_agd solve on the card from a fresh transfer of the
     instance, in `mode`; with `count`, of GlobalCountObjective, its count
     row normalized (row_scale 1/sqrt(real edges), as the reference's
     formulations compiler normalizes a global row) or, with `normalized`
-    False, all ones as in the reference's class."""
+    False, all ones as in the reference's class.  `algorithm` names the
+    update rule; `fixed` runs that many iterations with no criteria."""
     import torch
     from repro_torch.convert import lp_to_torch
     from repro_torch.core import (GlobalCountObjective, MatchingObjective,
@@ -1344,13 +1384,14 @@ def parity_solve(lp_np, mode, count=None, normalized=True,
         real = sum(int(s.mask.sum()) for s in lp.slabs)
         scale = 1.0 / math.sqrt(real) if normalized else 1.0
         obj = GlobalCountObjective(lp, count=count, row_scale=scale, **kw)
-    cfg = SolveConfig(iterations=30000, gamma=0.01, max_step=1e-1,
+    cfg = SolveConfig(iterations=fixed or 30000, gamma=0.01, max_step=1e-1,
                       initial_step=1e-5)
-    crit = StoppingCriteria(tol_rel_dual=1e-6, tol_infeas_rel=1e-4,
-                            check_every=PARITY_CHECK,
-                            max_iterations=max_iterations)
+    crit = (None if fixed else
+            StoppingCriteria(tol_rel_dual=1e-6, tol_infeas_rel=1e-4,
+                             check_every=PARITY_CHECK,
+                             max_iterations=max_iterations))
     t0 = time.perf_counter()
-    res = Maximizer(cfg).maximize(obj, criteria=crit)
+    res = Maximizer(cfg, algorithm=algorithm).maximize(obj, criteria=crit)
     torch.cuda.synchronize()
     return res, time.perf_counter() - t0, obj
 
@@ -1422,6 +1463,234 @@ def parity():
         f"{res.iterations_run} iterations, {dt:.2f} s; sum of x {x_sum:.4f}, "
         f"infeas {float(res.stats.infeas[-1]):.4e}, last rel_dual "
         f"{res.diagnostics[-1].rel_dual:.3e}")
+
+
+def main_path_rules(args, inst, agd_dual):
+    """Phase 8 on the main path: pdhg through the CLI entry point with the
+    certificate, then bb and pga for a fixed RULE_ITERATIONS each on its
+    objective.  Returns the launches of K1 and K2 in each rule's run."""
+    import torch
+    from repro_torch.core import Maximizer, SolveConfig
+    from repro_torch.launch import solve
+    args_p = solve.build_parser().parse_args(
+        MAIN_ARGS + ["--algorithm", "pdhg"])
+    out, launches, _ = drive(args_p, inst,
+                             ("dual_x_slab", "ax_reduce_plan_x"),
+                             "main path, pdhg")
+    require(out.result["algorithm"] == "pdhg", "the CLI ran another rule")
+    require(out.result["certificate_valid"] is True,
+            "pdhg certificate not valid")
+    dual = out.result["dual_obj_final"]
+    drift = abs(dual - agd_dual) / abs(agd_dual)
+    log(f"main path, pdhg: {out.result['iterations_run']} iterations, dual "
+        f"{dual!r} against agd's {agd_dual!r} (phase 3): relative "
+        f"{drift:.3e} (limit {MAIN_RULE_DRIFT:.0e})")
+    require(drift <= MAIN_RULE_DRIFT, f"pdhg's dual drifts {drift:.3e}")
+    by_rule = {"pdhg": launches}
+    cfg = SolveConfig(iterations=RULE_ITERATIONS, gamma=out.gamma,
+                      max_step=1e-1, initial_step=1e-5)
+    for rule in ("bb", "pga"):
+        torch.cuda.synchronize()
+        reset_counters()
+        t0 = time.perf_counter()
+        res = Maximizer(cfg, algorithm=rule).maximize(out.objective)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        by_rule[rule] = read_counters()
+        d = res.stats.dual_obj
+        log(f"main path, {rule}: {RULE_ITERATIONS} iterations at gamma "
+            f"{out.gamma:.4g} from lambda = 0 in {dt:.3f} s, "
+            f"{dt / RULE_ITERATIONS * 1e3:.3f} ms/iteration (synchronised, "
+            f"one host read); dual {float(d[0]):.3f} -> {float(d[-1]):.3f}; "
+            f"launches {by_rule[rule]}")
+        require(bool(torch.isfinite(res.lam).all())
+                and all(math.isfinite(float(v)) for v in d),
+                f"{rule} on the main path: non-finite dual")
+        require(by_rule[rule]["dual_x_slab"] > 0
+                and by_rule[rule]["ax_reduce_plan_x"] > 0,
+                f"{rule} on the main path: K1 or K2 never ran")
+    return by_rule
+
+
+def fault_tolerance(args, obj, lam, iterations):
+    """Phase 8 on phase 3's objective, through Maximizer: the health guard
+    off and on, a transient fault, a persistent one, and pdhg preempted,
+    checkpointed to disk and resumed."""
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core import (HealthConfig, Maximizer, SolveEngine,
+                                  StopReason, get_rule)
+    from repro_torch.launch import solve
+    from repro_torch.testing import (ChunkFaultInjector,
+                                     NaNInjectingObjective, PreemptAfter)
+    cfg, crit = solve.solve_config(args)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        return res, dt, dt / max(res.iterations_run, 1) * 1e3
+
+    res, dt, ms = timed(lambda: Maximizer(cfg).maximize(
+        obj, criteria=crit, health=HealthConfig()))
+    log(f"fault tolerance: guarded agd {res.iterations_run} iterations in "
+        f"{dt:.3f} s ({ms:.3f} ms/iteration, guard on, one host read a "
+        f"chunk), {len(res.health)} health records")
+    require(res.iterations_run == iterations and torch.equal(res.lam, lam)
+            and res.health == (),
+            "the guarded run differs from the unguarded one")
+    log("fault tolerance: guarded agd equals phase 3's unguarded run bit "
+        "for bit (lambda and iterations)")
+
+    eng = SolveEngine(obj.calculate, cfg)
+    eng.chunk_fault_hook = ChunkFaultInjector(at_it=crit.check_every)
+    res, dt, ms = timed(lambda: eng.solve(
+        torch.zeros(obj.dual_shape, device=DEVICE), criteria=crit,
+        health=HealthConfig()))
+    log(f"fault tolerance: NaN injected into the second chunk: "
+        f"{[tuple(r[:4]) + (r.rolled_back_to, r.step_scale) for r in res.health]}; "
+        f"{res.stop_reason.value} after {res.iterations_run} iterations, "
+        f"dual {float(res.stats.dual_obj[-1])!r}")
+    require(len(res.health) == 1 and res.health[0].action == "rollback"
+            and res.converged, "the transient fault was not rolled back")
+
+    health = HealthConfig(max_retries=3)
+    res, dt, ms = timed(lambda: Maximizer(cfg).maximize(
+        NaNInjectingObjective(obj, mode="always"), criteria=crit,
+        health=health))
+    log(f"fault tolerance: NaN objective: {res.stop_reason.value} after "
+        f"{len(res.health)} records "
+        f"({[r.action for r in res.health]}), lambda finite "
+        f"{bool(torch.isfinite(res.lam).all())}")
+    require(res.stop_reason == StopReason.DIVERGED
+            and len(res.health) == health.max_retries + 1
+            and bool(torch.isfinite(res.lam).all()),
+            "the persistent fault did not stop DIVERGED")
+
+    full, dt, ms = timed(lambda: Maximizer(cfg, algorithm="pdhg").maximize(
+        obj, criteria=crit))
+    with tempfile.TemporaryDirectory() as d:
+        mgr = CheckpointManager(d)
+        part = Maximizer(cfg, algorithm="pdhg").maximize(
+            obj, criteria=crit,
+            checkpoint_fn=lambda it, st, meta: mgr.save(it, st,
+                                                        extra=dict(meta)),
+            preempt_fn=PreemptAfter(4))
+        flat, extra = mgr.restore_flat(mgr.latest_step())
+    state = get_rule("pdhg").state_from_flat(flat, DEVICE)
+    res = Maximizer(cfg, algorithm="pdhg").maximize(
+        obj, criteria=crit, initial_state=state, resume_meta=extra)
+    same = (res.iterations_run == full.iterations_run
+            and torch.equal(res.lam, full.lam)
+            and all(bool((a == np.concatenate([b, c])).all())
+                    for a, b, c in zip(full.stats, part.stats, res.stats)))
+    log(f"fault tolerance: pdhg uninterrupted {full.iterations_run} "
+        f"iterations ({ms:.3f} ms/iteration); preempted at "
+        f"{part.iterations_run} ({part.stop_reason.value}), checkpointed, "
+        f"resumed to {res.iterations_run}: bit for bit {same}")
+    require(part.stop_reason == StopReason.PREEMPTED and same,
+            "the resumed pdhg run differs from the uninterrupted one")
+
+
+def rule_parity():
+    """Phase 8's parity: perf_lp/tol_pdhg and tol_bb twice each in aligned
+    (bit-identical, converged, the dual within 1e-4 of the reference's,
+    the stop within one check of the reference's spread), and pga's fixed
+    300 iterations against the port's CPU run."""
+    import torch
+    from repro_torch.core import InstanceSpec, generate, validate_lp
+    spec = InstanceSpec(num_sources=2000, num_destinations=1000,
+                        avg_nnz_per_row=4.0, seed=42)
+    lp_np = validate_lp(generate(spec))
+    for rule, (ref_dual, (lo, hi)) in RULE_PARITY.items():
+        runs = []
+        for _ in range(2):
+            res, dt, _ = parity_solve(lp_np, "aligned", algorithm=rule)
+            dual = float(res.stats.dual_obj[-1])
+            rel = abs(dual - ref_dual) / abs(ref_dual)
+            log(f"parity perf_lp/tol_{rule} aligned: {res.stop_reason.value} "
+                f"after {res.iterations_run} iterations (reference {lo}..{hi}, "
+                f"held within one check of that); dual {dual:.6f} vs "
+                f"{ref_dual:.6f} (rel {rel:.2e}, limit 1e-4); {dt:.2f} s, "
+                f"{dt / max(res.iterations_run, 1) * 1e3:.3f} ms/iter")
+            require(res.converged, f"parity {rule} did not converge")
+            require(rel <= 1e-4, f"parity {rule} dual off by {rel:.2e}")
+            require(lo - PARITY_CHECK <= res.iterations_run
+                    <= hi + PARITY_CHECK,
+                    f"parity {rule} stopped at {res.iterations_run}, outside "
+                    f"{lo}..{hi}")
+            runs.append(res)
+        require(runs[0].iterations_run == runs[1].iterations_run
+                and torch.equal(runs[0].lam, runs[1].lam),
+                f"two {rule} parity runs differ")
+        log(f"parity: two {rule} runs bit-identical (iterations and lambda)")
+    res, dt, _ = parity_solve(lp_np, "aligned", algorithm="pga", fixed=300)
+    dual = float(res.stats.dual_obj[-1])
+    rel = abs(dual - PGA_300_DUAL) / abs(PGA_300_DUAL)
+    log(f"parity pga, fixed 300 iterations: dual {dual:.6f} vs the port's "
+        f"CPU run {PGA_300_DUAL:.6f} (rel {rel:.2e}, limit 1e-5); "
+        f"{dt:.2f} s, {dt / 300 * 1e3:.3f} ms/iter")
+    require(rel <= 1e-5, f"pga's 300-iteration dual off by {rel:.2e}")
+
+
+def cli_flags():
+    """Phase 8's CLI flags at parity size: --save-duals then --warm-start,
+    --checkpoint-dir then --resume against the uninterrupted run, and
+    --resume under another --algorithm."""
+    import tempfile
+    import torch
+    from repro_torch.launch import solve
+    lines = []
+
+    def run(*flags):
+        args = solve.build_parser().parse_args(PARITY_ARGS + list(flags))
+        return solve.run(args, log=lines.append, instance=inst)
+
+    inst = solve.generate_instance(
+        solve.build_parser().parse_args(PARITY_ARGS), log=lambda m: None)
+    tol = ["--adaptive-continuation", "--tol-rel-dual", "1e-6",
+           "--iterations", "3000"]
+    with tempfile.TemporaryDirectory() as d:
+        first = run(*tol, "--save-duals", os.path.join(d, "lam.npz"))
+        warm = run(*tol, "--warm-start", os.path.join(d, "lam.npz"))
+        reason = [m for m in lines if m.startswith("warm start:")]
+        log(f"cli: --save-duals after {first.result['iterations_run']} "
+            f"iterations, --warm-start stops after "
+            f"{warm.result['iterations_run']} at gamma "
+            f"{warm.result['gamma_final']:.4g}; {reason}")
+        require(reason == ["warm start: duals already at gamma=0.01 on this "
+                           "instance; continuation skipped"]
+                and warm.result["iterations_run"]
+                < first.result["iterations_run"],
+                "--warm-start did not skip continuation")
+
+        ck = ["--algorithm", "pdhg", "--checkpoint-dir"]
+        run("--iterations", "100", *ck, os.path.join(d, "ck"))
+        resumed = run("--iterations", "200", *ck, os.path.join(d, "ck"),
+                      "--resume")
+        full = run("--iterations", "200", *ck, os.path.join(d, "full"))
+        same = (torch.equal(resumed.lam, full.lam)
+                and resumed.result["dual_obj_final"]
+                == full.result["dual_obj_final"])
+        log(f"cli: --checkpoint-dir at 100, --resume to 200 against the "
+            f"uninterrupted 200 (pdhg): bit for bit {same}")
+        require(same and any(m.startswith("resumed from checkpoint step 100")
+                             for m in lines),
+                "the resumed CLI run differs from the uninterrupted one")
+        try:
+            run("--iterations", "300", "--algorithm", "bb",
+                "--checkpoint-dir", os.path.join(d, "ck"), "--resume")
+            refused = None
+        except SystemExit as e:
+            refused = str(e)
+        log(f"cli: --resume with --algorithm bb on a pdhg checkpoint: "
+            f"{refused}")
+        require(refused is not None and refused.startswith(
+            "--resume refused"), "--resume under another rule ran")
 
 
 def reset_counters():
@@ -1603,13 +1872,13 @@ def main() -> int:
     log(f"proj path (ops.proj_boxcut on every slab's u): {n5} launches")
     counts["proj_boxcut"] = ({"proj_boxcut": n5}, {"proj_boxcut": n5})
     records["proj_boxcut"] = check_proj(out.objective, lam, gamma, xs, us)
-    del out, xs, us
+    del xs, us
     torch.cuda.empty_cache()
     args_s = solve.build_parser().parse_args(
         [a for a in MAIN_ARGS if a != "--certify"] + ["--ax-mode", "scatter"])
     out_s, _, _ = drive(args_s, inst, ("dual_grad_slab",),
                         "main path, scatter")
-    del out_s, inst
+    del out_s
     torch.cuda.empty_cache()
 
     # 6. rows wider than 1,024
@@ -1618,6 +1887,22 @@ def main() -> int:
 
     # 7. parity with the reference's recorded run, every mode
     parity()
+
+    # 8. the other update rules and the fault-tolerance path
+    t_rules = time.perf_counter()
+    by_rule = main_path_rules(args, inst, out.result["dual_obj_final"])
+    del inst
+    torch.cuda.empty_cache()
+    fault_tolerance(args, out.objective, out.lam,
+                    out.result["iterations_run"])
+    del out
+    torch.cuda.empty_cache()
+    rule_parity()
+    cli_flags()
+    log(f"phase 8 (rules): {time.perf_counter() - t_rules:.1f} s")
+    for name in ("dual_x_slab", "ax_reduce_plan_x"):
+        records[name]["launches_by_rule"] = {
+            rule: n[name] for rule, n in by_rule.items()}
 
     kernels = []
     for name, rec in records.items():

@@ -7,23 +7,85 @@ chunk of `check_every` steps during which nothing crosses to the host —
 `IterStats` stay on the device.  At the chunk boundary the chunk's stats
 are copied to the host once, and a host controller evaluates the
 `StoppingCriteria` and, with `SolveConfig.adaptive_continuation`, decays γ
-on stall.  With no criteria the engine runs one chunk of the full
-iteration count.  The chunk is the counterpart of the reference's jitted
-`lax.scan`.  Not ported yet: the health guard, checkpoint/preempt hooks,
-telemetry, profiler and memory sampler (ROADMAP queue A items 10, 14).
+on stall.  With no criteria and no fault-tolerance hook the engine runs
+one chunk of the full iteration count.  The chunk is the counterpart of
+the reference's jitted `lax.scan`.
+
+Fault tolerance (DESIGN.md §9): with a `HealthConfig` each chunk is
+classified from its trailing stats and, with `check_lambda`, from one
+finiteness flag per `rule.health_arrays` tensor, appended to the same
+stats copy (a chunk still makes one host read).  A bad chunk rolls back
+to the last good snapshot and retries with backed-off steps; exhausted
+retries stop DIVERGED.  `checkpoint_fn`, `preempt_fn`, `initial_state`
+and `resume_meta` give checkpoint/resume.  Telemetry, the profiler and
+the memory sampler are not ported yet (ROADMAP queue A item 14).
 """
 from __future__ import annotations
 
+import math
 import time
 from collections import deque
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from .types import (ConvergenceCheck, IterStats, SolveConfig, SolveResult,
-                    SolveState, StopReason, StoppingCriteria)
-from .update_rules import gamma_at, get_rule
+from .types import (ConvergenceCheck, HealthConfig, HealthRecord, IterStats,
+                    SolveConfig, SolveResult, SolveState, StopReason,
+                    StoppingCriteria)
+from .update_rules import UpdateRule, gamma_at, get_rule
+
+
+def _copy_state(state: SolveState) -> SolveState:
+    """A fresh buffer for every leaf, `extra` included: the snapshot must
+    not share a tensor with the live state."""
+    extra = state.extra    # () or the rule's NamedTuple of tensors
+    if extra:
+        extra = type(extra)(*(t.clone() for t in extra))
+    return SolveState(*(t.clone() for t in state[:-1]), extra=extra)
+
+
+def _classify_chunk(health: HealthConfig, arrays_finite: bool, g: float,
+                    infeas: float, grad_norm: float, gamma_cur: float,
+                    snap_g: Optional[float], snap_grad: Optional[float],
+                    snap_gamma: Optional[float]) -> Optional[str]:
+    """Health verdict for one chunk: None if healthy, else the fault kind.
+    The scalar checks read the chunk's trailing stats; `arrays_finite`
+    (the rule's `health_arrays` swept on the device, read in the chunk's
+    one copy) catches a NaN from the last update, which the trailing
+    stats, taken before it, cannot see."""
+    if not (math.isfinite(g) and math.isfinite(infeas)
+            and math.isfinite(grad_norm)):
+        return "nonfinite"
+    if health.check_lambda and not arrays_finite:
+        return "nonfinite"
+    if (snap_grad is not None
+            and grad_norm > health.grad_explosion * max(snap_grad, 1.0)):
+        return "grad_explosion"
+    # g moves legitimately when γ moves, so the regression rule compares
+    # only chunks that ended at the same γ
+    if (snap_g is not None and snap_gamma is not None
+            and gamma_cur == snap_gamma
+            and g < snap_g - health.obj_regression_tol
+            * max(1.0, abs(snap_g))):
+        return "regression"
+    return None
+
+
+def _to_host(stats: torch.Tensor,
+             arrays: Sequence[torch.Tensor]) -> Tuple[IterStats, bool]:
+    """The chunk's one device-to-host copy: the (6, n) stats and, when
+    `arrays` is not empty, one finiteness flag per array appended to
+    them.  Returns the host IterStats and whether every array is
+    finite."""
+    if not arrays:
+        return IterStats(*stats.cpu().numpy()), True
+    flags = torch.stack([torch.isfinite(a).all() for a in arrays])
+    host = torch.cat([stats.reshape(-1),
+                      flags.to(torch.float32)]).cpu().numpy()
+    n = stats.numel()
+    return (IterStats(*host[:n].reshape(stats.shape)),
+            bool(host[n:].all()))
 
 
 class SolveEngine:
@@ -34,14 +96,18 @@ class SolveEngine:
         self.calculate = calculate
         self.config = config
         self.algorithm = algorithm
-        self.rule = get_rule(algorithm)
+        self.rule: UpdateRule = get_rule(algorithm)
+        # fault-injection seam (DESIGN.md §9): when set, called after every
+        # chunk as `hook(it_start, state, stats) -> (state, stats)` with the
+        # chunk's stats still on the device.  Never set in production.
+        self.chunk_fault_hook = None
 
     def _run_chunk(self, state: SolveState, length: int,
                    gamma: Optional[torch.Tensor]):
         """`length` steps with no host synchronisation; returns the new
-        state and the chunk's IterStats as host float32 arrays (one copy).
-        `gamma` fixes γ for the chunk (adaptive mode); None follows the
-        scheduled continuation from the carried iteration counter."""
+        state and the chunk's stats as one (6, length) float32 device
+        tensor.  `gamma` fixes γ for the chunk (adaptive mode); None
+        follows the scheduled continuation from the carried counter."""
         config = self.config
         if gamma is None:
             def gamma_fn(st):
@@ -54,13 +120,32 @@ class SolveEngine:
             state, st = self.rule.step(self.calculate, config, gamma_fn, state)
             rows.append(torch.stack([t.to(torch.float32).reshape(())
                                      for t in st]))
-        host = torch.stack(rows, dim=1).cpu().numpy()       # (6, length)
-        return state, IterStats(*host)
+        return state, torch.stack(rows, dim=1)
 
-    def solve(self, lam0: torch.Tensor,
+    def solve(self, lam0: Optional[torch.Tensor],
               criteria: Optional[StoppingCriteria] = None,
               diagnostics_fn: Optional[Callable] = None,
-              infeas_scale: float = 1.0) -> SolveResult:
+              infeas_scale: float = 1.0,
+              health: Optional[HealthConfig] = None,
+              checkpoint_fn: Optional[Callable] = None,
+              preempt_fn: Optional[Callable] = None,
+              initial_state: Optional[SolveState] = None,
+              resume_meta: Optional[dict] = None) -> SolveResult:
+        """Run the solve loop.  Beyond the criteria and diagnostics:
+
+          health         HealthConfig: the per-chunk guard (rollback with
+                         backoff, DIVERGED when retries run out);
+          checkpoint_fn  `fn(it, state, meta)` after every healthy chunk
+                         and once more at exit (`meta["final"] = True`);
+                         `meta` holds what `resume_meta` needs;
+          preempt_fn     `fn() -> bool` polled at every chunk boundary;
+                         True stops the loop PREEMPTED;
+          initial_state  a restored SolveState: the loop continues from
+                         state.it, bit for bit the uninterrupted run;
+          resume_meta    the checkpoint's meta ("gamma_now", "g_prev").
+
+        Any of health/checkpoint_fn/preempt_fn/initial_state forces the
+        chunked path."""
         config = self.config
         total = config.iterations
         if criteria is not None and criteria.max_iterations is not None:
@@ -68,14 +153,20 @@ class SolveEngine:
         adaptive = (config.adaptive_continuation
                     and config.gamma_init is not None
                     and config.gamma_init > config.gamma)
-        chunked = total > 0 and (
-            adaptive or (criteria is not None and criteria.needs_checks))
-        state = self.rule.init_state(lam0, config)
-        dev = lam0.device
+        guarded = (health is not None or checkpoint_fn is not None
+                   or preempt_fn is not None or initial_state is not None)
+        chunked = guarded or (total > 0 and (
+            adaptive or (criteria is not None and criteria.needs_checks)))
+        if initial_state is not None:
+            state = _copy_state(initial_state)
+            dev = state.lam.device
+        else:
+            state = self.rule.init_state(lam0, config)
+            dev = lam0.device
 
         if not chunked:
             state, stats = self._run_chunk(state, total, None)
-            return SolveResult(lam=state.lam, stats=stats,
+            return SolveResult(lam=state.lam, stats=_to_host(stats, ())[0],
                                iterations_run=total, converged=False,
                                stop_reason=StopReason.MAX_ITERATIONS,
                                final_state=state)
@@ -85,21 +176,87 @@ class SolveEngine:
         gamma_now = float(config.gamma_init) if adaptive else config.gamma
         g_prev = None
         it_done = 0
+        if initial_state is not None:
+            it_done = int(initial_state.it)
+            meta = resume_meta or {}
+            if meta.get("gamma_now") is not None:
+                gamma_now = float(meta["gamma_now"])
+            if meta.get("g_prev") is not None:
+                g_prev = float(meta["g_prev"])
+        sweep = health is not None and health.check_lambda
         t0 = time.perf_counter()
         stats_chunks = []
         diags = deque(maxlen=config.max_diagnostics)
+        health_recs = []
         converged = False
         stop_reason = StopReason.MAX_ITERATIONS
+        # the last good snapshot and its baselines (health guard)
+        snap = _copy_state(state) if health is not None else None
+        snap_it = it_done
+        snap_gamma_now = gamma_now
+        snap_g_prev = g_prev
+        snap_g = snap_grad = snap_gamma = None
+        fails = 0
+
+        def _meta(final: bool) -> dict:
+            meta = {"gamma_now": gamma_now, "g_prev": g_prev,
+                    "it": it_done, "final": final}
+            meta.update(self.rule.checkpoint_meta())
+            return meta
+
         while it_done < total:
+            if preempt_fn is not None and preempt_fn():
+                stop_reason = StopReason.PREEMPTED
+                break
             n = min(check, total - it_done)
             gamma_arr = (torch.full((), gamma_now, dtype=torch.float32,
                                     device=dev) if adaptive else None)
-            state, stats = self._run_chunk(state, n, gamma_arr)
+            state, dev_stats = self._run_chunk(state, n, gamma_arr)
+            if self.chunk_fault_hook is not None:
+                state, st = self.chunk_fault_hook(it_done, state,
+                                                  IterStats(*dev_stats))
+                dev_stats = torch.stack(list(st))
+            stats, arrays_finite = _to_host(
+                dev_stats, self.rule.health_arrays(state) if sweep else ())
             g = float(stats.dual_obj[-1])
             infeas = float(stats.infeas[-1])
             grad_norm = float(stats.grad_norm[-1])
             gamma_cur = float(stats.gamma[-1])
             elapsed = time.perf_counter() - t0
+
+            if health is not None:
+                status = _classify_chunk(health, arrays_finite, g, infeas,
+                                         grad_norm, gamma_cur, snap_g,
+                                         snap_grad, snap_gamma)
+                if status is not None:
+                    fails += 1
+                    scale = health.step_backoff ** fails
+                    action = ("giveup" if fails > health.max_retries
+                              else "rollback")
+                    health_recs.append(HealthRecord(
+                        it=it_done + n, status=status, action=action,
+                        retries=fails, dual_obj=g, grad_norm=grad_norm,
+                        gamma=gamma_cur, rolled_back_to=snap_it,
+                        step_scale=scale))
+                    if action == "giveup":
+                        state = _copy_state(snap)
+                        gamma_now = snap_gamma_now
+                        g_prev = snap_g_prev
+                        stop_reason = StopReason.DIVERGED
+                        break
+                    state = self.rule.apply_backoff(
+                        _copy_state(snap), config, snap_gamma_now, scale)
+                    if adaptive:
+                        # retry under heavier regularization; the stall
+                        # decay walks γ back down afterwards
+                        gamma_now = min(
+                            snap_gamma_now * health.gamma_backoff ** fails,
+                            float(config.gamma_init))
+                    g_prev = snap_g_prev
+                    # the bad chunk's stats are dropped; the iteration
+                    # counter never advanced, so the γ schedule rewinds too
+                    continue
+                fails = 0
 
             it_done += n
             stats_chunks.append(stats)
@@ -122,6 +279,14 @@ class SolveEngine:
             diags.append(rec)
             if diagnostics_fn is not None:
                 diagnostics_fn(rec)
+            if health is not None:
+                snap = _copy_state(state)
+                snap_it = it_done
+                snap_gamma_now = gamma_now
+                snap_g_prev = g_prev
+                snap_g, snap_grad, snap_gamma = g, grad_norm, gamma_cur
+            if checkpoint_fn is not None:
+                checkpoint_fn(it_done, state, _meta(final=False))
             # tolerances count only once γ has reached its target
             if at_target and criteria.satisfied(rel_dual, infeas, grad_norm,
                                                 infeas_scale):
@@ -133,6 +298,8 @@ class SolveEngine:
                 stop_reason = StopReason.MAX_SECONDS
                 break
 
+        if checkpoint_fn is not None:
+            checkpoint_fn(it_done, state, _meta(final=True))
         if stats_chunks:
             stats = IterStats(*(np.concatenate(f) for f in zip(*stats_chunks)))
         else:
@@ -140,7 +307,8 @@ class SolveEngine:
                                 for _ in IterStats._fields))
         return SolveResult(lam=state.lam, stats=stats, iterations_run=it_done,
                            converged=converged, stop_reason=stop_reason,
-                           diagnostics=tuple(diags), final_state=state)
+                           diagnostics=tuple(diags),
+                           health=tuple(health_recs), final_state=state)
 
 
 def _infeas_scale(obj, criteria: Optional[StoppingCriteria]) -> float:
@@ -157,12 +325,20 @@ def maximize(calculate: Callable, lam0: torch.Tensor, config: SolveConfig,
              algorithm: str = "agd",
              criteria: Optional[StoppingCriteria] = None,
              diagnostics_fn: Optional[Callable] = None,
-             infeas_scale: float = 1.0) -> SolveResult:
+             infeas_scale: float = 1.0,
+             health: Optional[HealthConfig] = None,
+             checkpoint_fn: Optional[Callable] = None,
+             preempt_fn: Optional[Callable] = None,
+             initial_state: Optional[SolveState] = None,
+             resume_meta: Optional[dict] = None) -> SolveResult:
     """Thin wrapper over SolveEngine: fixed-length with no `criteria`,
-    tolerance-terminated with them."""
+    tolerance-terminated with them; the fault-tolerance hooks pass
+    through."""
     return SolveEngine(calculate, config, algorithm).solve(
         lam0, criteria=criteria, diagnostics_fn=diagnostics_fn,
-        infeas_scale=infeas_scale)
+        infeas_scale=infeas_scale, health=health,
+        checkpoint_fn=checkpoint_fn, preempt_fn=preempt_fn,
+        initial_state=initial_state, resume_meta=resume_meta)
 
 
 class Maximizer:
@@ -181,12 +357,19 @@ class Maximizer:
 
     def maximize(self, obj, initial_value: Optional[torch.Tensor] = None,
                  criteria: Optional[StoppingCriteria] = None,
-                 diagnostics_fn: Optional[Callable] = None) -> SolveResult:
-        if initial_value is None:
+                 diagnostics_fn: Optional[Callable] = None,
+                 health: Optional[HealthConfig] = None,
+                 checkpoint_fn: Optional[Callable] = None,
+                 preempt_fn: Optional[Callable] = None,
+                 initial_state: Optional[SolveState] = None,
+                 resume_meta: Optional[dict] = None) -> SolveResult:
+        if initial_value is None and initial_state is None:
             initial_value = torch.zeros(obj.dual_shape, dtype=torch.float32,
                                         device=obj.lp.b.device)
         criteria = self.criteria if criteria is None else criteria
         engine = SolveEngine(obj.calculate, self.config, self.algorithm)
         return engine.solve(
             initial_value, criteria=criteria, diagnostics_fn=diagnostics_fn,
-            infeas_scale=_infeas_scale(obj, criteria))
+            infeas_scale=_infeas_scale(obj, criteria), health=health,
+            checkpoint_fn=checkpoint_fn, preempt_fn=preempt_fn,
+            initial_state=initial_state, resume_meta=resume_meta)

@@ -149,8 +149,14 @@ class StopReason(enum.Enum):
 
 @dataclasses.dataclass(frozen=True)
 class HealthConfig:
-    """Health-guard policy; same fields and defaults as the reference.
-    The port's engine does not run the guard yet."""
+    """Health-guard policy (same fields and defaults as the reference).
+
+    After every chunk the engine checks the trailing scalars and, with
+    `check_lambda`, that the rule's `health_arrays` are finite.  A bad
+    chunk is rolled back to the last good snapshot and retried with the
+    step cap scaled by `step_backoff`^k (and, under adaptive
+    continuation, γ raised by `gamma_backoff`^k); after `max_retries`
+    consecutive failures the solve stops DIVERGED with the last good λ."""
 
     max_retries: int = 3
     obj_regression_tol: float = 0.5
@@ -158,6 +164,21 @@ class HealthConfig:
     step_backoff: float = 0.25
     gamma_backoff: float = 4.0
     check_lambda: bool = True
+
+
+class HealthRecord(NamedTuple):
+    """One incident of the health guard; only bad chunks produce one.
+    Every field is a host Python scalar."""
+
+    it: int               # iteration count the bad chunk ended at
+    status: str           # "nonfinite" | "regression" | "grad_explosion"
+    action: str           # "rollback" (retrying) | "giveup" (DIVERGED)
+    retries: int          # consecutive failures so far, this one included
+    dual_obj: float       # g at the bad chunk's end (may be NaN)
+    grad_norm: float      # ‖∇g‖ at the bad chunk's end (may be NaN)
+    gamma: float          # γ of the bad chunk
+    rolled_back_to: int   # iteration of the snapshot restored
+    step_scale: float     # step-cap multiplier applied to the retry
 
 
 @dataclasses.dataclass(frozen=True)
@@ -248,5 +269,5 @@ class SolveResult(NamedTuple):
     converged: bool = False
     stop_reason: Optional[StopReason] = None
     diagnostics: Tuple[ConvergenceCheck, ...] = ()
-    health: Tuple[Any, ...] = ()
+    health: Tuple[HealthRecord, ...] = ()
     final_state: Optional[SolveState] = None

@@ -8,12 +8,15 @@ For min cᵀx s.t. Ax ≤ b, x ∈ C and its ridge-perturbed dual g_γ(λ):
 
 So gap = cᵀx̂ − (g_γ(λ) − (γ/2)B) certifies the witness x̂ whenever the
 slack report — host numpy, independent of the solver's Ax path — shows it
-feasible.  The report covers the destination-capacity block and the
-blockwise set C itself.
+feasible.  The report covers the destination-capacity block, the global
+count row of `GlobalCountObjective` (in count units: its `row_scale` σ
+writes the same constraint as σ·Σx <= σ·count) and the blockwise set C
+itself.  The default witness is `repair_witness`: the capacity repair,
+then one uniform shrink until every global row holds.
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Sequence
+from typing import Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -25,9 +28,9 @@ from .rounding import primal_ax, scale_repair
 
 class FamilySlack(NamedTuple):
     label: str
-    kind: str               # "dest_capacity" | "blocks"
-    used: float
-    limit: float
+    kind: str               # "dest_capacity" | "global" | "blocks"
+    used: float             # Σx (global) / ‖(Ax−b)₊‖ (dest block)
+    limit: float            # count (global) / 0.0
     max_violation: float    # worst signed residual (≤ 0 means slack)
     norm_violation: float   # ‖positive residuals‖₂
     violation_rel: float    # max_violation / family scale
@@ -78,20 +81,38 @@ def primal_value(lp, xs: Sequence[np.ndarray]) -> float:
     return val
 
 
-def _capacity_report(lp, xs) -> dict:
+def _fallback_family_report(obj, lp, xs) -> Dict[str, dict]:
+    """The destination-capacity block and, when `obj` has a `count`, the
+    global count row Σx <= count (the reference's report for objectives
+    without the formulations' `family_report` hook)."""
     res = primal_ax(lp, xs) - np.asarray(lp.b, np.float64)
     b = np.asarray(lp.b)
-    return {"kind": "dest_capacity",
-            "used": float(np.linalg.norm(np.maximum(res, 0.0))),
-            "limit": 0.0,
-            "max_violation": float(res.max()) if res.size else 0.0,
-            "norm_violation": float(np.linalg.norm(np.maximum(res, 0.0))),
-            "scale": 1.0 + float(np.abs(b).max() if b.size else 0.0)}
+    out = {"dest_capacity": {
+        "kind": "dest_capacity",
+        "used": float(np.linalg.norm(np.maximum(res, 0.0))),
+        "limit": 0.0,
+        "max_violation": float(res.max()) if res.size else 0.0,
+        "norm_violation": float(np.linalg.norm(np.maximum(res, 0.0))),
+        "scale": 1.0 + float(np.abs(b).max() if b.size else 0.0),
+    }}
+    count = getattr(obj, "count", None)
+    if count is not None:
+        used = sum(float(np.where(np.asarray(s.mask),
+                                  np.asarray(x, np.float64), 0.0).sum())
+                   for s, x in zip(lp.slabs, xs))
+        out["global_count"] = {
+            "kind": "global", "used": used, "limit": float(count),
+            "max_violation": used - float(count),
+            "norm_violation": max(used - float(count), 0.0),
+            "scale": 1.0 + abs(float(count)),
+        }
+    return out
 
 
-def _block_report(lp, kind, xs) -> dict:
-    """Residuals of the blockwise set C: x ≥ 0, x ≤ ub, Σx ≤ s (= s for
-    simplex_eq blocks)."""
+def _block_report(obj, lp, xs) -> dict:
+    """Residuals of the blockwise set C: x >= 0, x <= ub, Σx <= s (= s
+    for the objective's simplex_eq blocks)."""
+    kind = getattr(obj, "proj_kind", "boxcut")
     worst = 0.0
     scale = 1.0
     for slab, x in zip(lp.slabs, xs):
@@ -113,11 +134,13 @@ def _block_report(lp, kind, xs) -> dict:
             "max_violation": worst, "norm_violation": worst, "scale": scale}
 
 
-def family_slacks(lp, kind, xs) -> Dict[str, FamilySlack]:
-    """Slack report at a candidate point: the destination-capacity block
-    and the blockwise set C (`kind` is the blocks' projection kind)."""
-    raw = {"dest_capacity": _capacity_report(lp, xs),
-           "blocks": _block_report(lp, kind, xs)}
+def family_slacks(obj, xs, lp=None) -> Dict[str, FamilySlack]:
+    """Slack report at a candidate point: the row families and the
+    blockwise set C.  `lp` is `obj.lp` on the host, when the caller has
+    it already."""
+    lp = lp_to_numpy(obj.lp) if lp is None else lp
+    raw = dict(_fallback_family_report(obj, lp, xs),
+               blocks=_block_report(obj, lp, xs))
     return {label: FamilySlack(
                 label=label, kind=d["kind"], used=d["used"], limit=d["limit"],
                 max_violation=d["max_violation"],
@@ -126,20 +149,49 @@ def family_slacks(lp, kind, xs) -> Dict[str, FamilySlack]:
             for label, d in raw.items()}
 
 
+def global_row_caps(obj):
+    """[(per-slab weights or None, limit)] of every global row of `obj`
+    in count units: one all-ones row for `GlobalCountObjective`, none for
+    a plain `MatchingObjective`."""
+    count = getattr(obj, "count", None)
+    return [(None, float(count))] if count is not None else []
+
+
+def repair_witness(obj, xs: Sequence[np.ndarray], eps: float = 1e-6,
+                   lp=None) -> List[np.ndarray]:
+    """Make a candidate feasible for every family: `scale_repair` fixes
+    the capacity rows, then one uniform factor fixes any violated global
+    row (its weights are nonnegative, so a uniform shrink scales its use
+    linearly).  Shrinking only loosens the capacity rows, the budgets and
+    the box bounds."""
+    lp = lp_to_numpy(obj.lp) if lp is None else lp
+    xs = scale_repair(xs, lp, eps=eps)
+    f = 1.0
+    for s in family_slacks(obj, xs, lp).values():
+        if s.kind == "global" and s.used > s.limit and s.used > 0:
+            f = min(f, (1.0 - eps) * s.limit / s.used)
+    if f < 1.0:
+        xs = [np.where(np.asarray(slab.mask),
+                       np.asarray(x) * f, 0.0).astype(np.asarray(x).dtype)
+              for slab, x in zip(lp.slabs, xs)]
+    return xs
+
+
 def certify(obj, lam, gamma, xs: Optional[Sequence[np.ndarray]] = None,
             tol: float = 1e-5, chunk_rows: int = 4096) -> Certificate:
     """Build the duals-to-decisions certificate.  `xs` is the witness;
-    when omitted it is extracted from λ in chunks and made feasible by
-    `scale_repair`."""
+    when omitted it is extracted from λ in chunks and made feasible across
+    every family by `repair_witness`."""
     dev = obj.lp.b.device
     g = float(obj.calculate(torch.as_tensor(lam, device=dev),
                             torch.as_tensor(gamma, dtype=torch.float32,
                                             device=dev))[0])
     lp = lp_to_numpy(obj.lp)
     if xs is None:
-        xs = scale_repair(extract_primal(obj, lam, gamma,
-                                         chunk_rows=chunk_rows), lp)
-    slacks = family_slacks(lp, obj.proj_kind, xs)
+        xs = repair_witness(obj, extract_primal(obj, lam, gamma,
+                                                chunk_rows=chunk_rows),
+                            lp=lp)
+    slacks = family_slacks(obj, xs, lp)
     worst = max((s.violation_rel for s in slacks.values()), default=0.0)
     B = x_sq_bound(lp)
     dereg = 0.5 * float(gamma) * B
@@ -165,8 +217,14 @@ def format_certificate(cert: Certificate) -> str:
         f"(relative {cert.gap_rel:.3e})",
     ]
     for s in cert.slacks.values():
-        lines.append(f"family {s.label:<16} ‖(Ax−b)₊‖ {s.norm_violation:.2e}"
-                     f"   worst row {s.max_violation:+.2e}")
+        if s.kind == "global":
+            lines.append(
+                f"family {s.label:<16} used {s.used:.3f} / limit {s.limit:.3f}"
+                f"   violation {max(s.max_violation, 0.0):.2e}")
+        else:
+            lines.append(
+                f"family {s.label:<16} ‖(Ax−b)₊‖ {s.norm_violation:.2e}"
+                f"   worst row {s.max_violation:+.2e}")
     lines.append(
         f"certificate: {'VALID' if cert.valid else 'INVALID'} "
         f"(feasible={cert.feasible}, worst rel violation "

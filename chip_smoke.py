@@ -85,6 +85,24 @@ nothing of JAX or of the JAX package.  Phases, each failing loudly:
               --warm-start (continuation skipped), --checkpoint-dir then
               --resume (ending on the uninterrupted run's bits), and
               --resume under another --algorithm (refused), at parity size
+  9. forms    the formulations.  The main path's instance through the CLI
+              entry point with --formulation multi_budget --algorithm pdhg
+              --certify (two coupling rows folded into K1's c): converged
+              within 6,000 iterations, K1 and K2 launched, a valid
+              certificate, both rows' use within 1 % of their limits; one
+              evaluation against phase 3's at the same destination block,
+              and the shift fold's own time.  assignment_eq at full width
+              for 50 iterations: finite, K2 launched, K1 not (its
+              simplex_eq block has no kernel and runs the plain sweep).
+              compile_formulation(matching) equal to phase 3's objective
+              bit for bit at its final lambda.  Parity with the
+              reference's perf_lp formulation rows: agd twice on
+              global_count, multi_budget and assignment_eq (each pair
+              bit-identical), pdhg on each, bb on multi_budget and
+              assignment_eq: converged, duals within 1e-4 of the recorded
+              ones, stops inside FORM_WINDOWS; multi_budget in
+              aligned_gvals (K3 + K4) along aligned's trajectory bit for
+              bit
 
 The last three lines of standard output are the card's name and power
 limit, the kernels' JSON record, and {"ok": true, "device": {...}}.  Exits
@@ -148,6 +166,41 @@ RULE_ITERATIONS = 200   # bb's and pga's fixed run on the main path
 PARITY_ARGS = ["--sources", "2000", "--destinations", "1000",
                "--nnz-per-row", "4", "--seed", "42", "--json",
                "--device", "cuda"]
+# phase 9: the reference's recorded perf_lp/tol_<rule>_<formulation> rows
+# (bench_results.json: 2000 x 1000, nu = 4, seed 42, row_norm, aligned),
+# stopping iteration and final dual, each dual held at 1e-4 relative
+FORM_RECORDED = {
+    ("agd", "global_count"): (1650, -2278.330322265625),
+    ("agd", "multi_budget"): (6600, -1585.3785400390625),
+    ("agd", "assignment_eq"): (1850, -3452.912109375),
+    ("pdhg", "global_count"): (1025, -2278.3271484375),
+    ("pdhg", "multi_budget"): (375, -1585.4058837890625),
+    ("pdhg", "assignment_eq"): (750, -3452.91357421875),
+    ("bb", "multi_budget"): (1375, -1585.6009521484375),
+    ("bb", "assignment_eq"): (7875, -3452.911865234375),
+}
+# the window each stop is held in, one check wider (tests/
+# torch_stop_iterations.py --formulation, JAX and the port on a CPU).
+# agd: the reference's own ax modes and its recorded row.  pdhg and bb:
+# each package's rule in its own ax modes and on the other's objective,
+# and the recorded row: at tol_rel_dual 1e-6 their stop follows the
+# float32 sums of g, and the port's sums of c'x are the nearer to exact
+# (its dual sits ~1.7e-6 below the reference's at the same lambda)
+FORM_WINDOWS = {
+    ("agd", "global_count"): (1075, 1675),
+    ("agd", "multi_budget"): (6575, 6650),
+    ("agd", "assignment_eq"): (1600, 1850),
+    ("pdhg", "global_count"): (925, 3325),
+    ("pdhg", "multi_budget"): (375, 775),
+    ("pdhg", "assignment_eq"): (600, 750),
+    ("bb", "multi_budget"): (1325, 1425),
+    ("bb", "assignment_eq"): (7825, 8100),
+}
+# phase 9's full-width multi_budget run under pdhg: its iteration cap, and
+# how near its limit each coupling row's use must end (relative)
+FORM_MAIN_CAP = 6000
+FORM_BIND_TOL = 1e-2
+FORM_FIXED = 50     # assignment_eq's fixed iterations at full width
 # work tables (item size C, band entries) timed beside the default
 TABLE_SWEEP = ((2048, None), (1024, None), (4096, None), (1024, 1 << 22),
                (4096, 1 << 22), (2048, 1 << 21), (2048, 1 << 23))
@@ -1693,6 +1746,201 @@ def cli_flags():
             "--resume refused"), "--resume under another rule ran")
 
 
+def formulation_main_path(inst, out):
+    """Phase 9 (a): the main path's instance through the CLI entry point
+    with --formulation multi_budget --algorithm pdhg --certify: converged
+    within FORM_MAIN_CAP iterations, K1 and K2 launched, a valid
+    certificate, both coupling rows binding; then what the two rows cost
+    an evaluation against phase 3's matching objective at the same
+    destination block, and the shift fold's own operations.  Returns the
+    run's launches."""
+    import torch
+    from repro_torch.core.objectives import _shift_term
+    from repro_torch.launch import solve
+    args = solve.build_parser().parse_args(
+        MAIN_ARGS + ["--formulation", "multi_budget", "--algorithm", "pdhg",
+                     "--iterations", str(FORM_MAIN_CAP)])
+    what = "formulations: main path, multi_budget, pdhg"
+    out_f, launches, _ = drive(args, inst, ("dual_x_slab", "ax_reduce_plan_x"),
+                               what)
+    require(out_f.result["formulation"] == "multi_budget"
+            and out_f.result["algorithm"] == "pdhg", "the CLI ran another "
+            "formulation or rule")
+    require(out_f.result["certificate_valid"] is True,
+            "multi_budget certificate not valid")
+    obj, lam = out_f.objective, out_f.lam
+    g = torch.full((), out_f.gamma, device=DEVICE)
+    mus = [lam[-2], lam[-1]]
+    for (label, (used, limit)), mu in zip(obj.global_usage(lam, g).items(),
+                                          mus):
+        rel = used / limit - 1.0
+        log(f"{what}: row {label} used {used!r} / limit {limit!r} "
+            f"(relative {rel:+.3e}, limit {FORM_BIND_TOL:.0e}), "
+            f"mu {float(mu)!r}")
+        require(abs(rel) <= FORM_BIND_TOL and float(mu) > 0,
+                f"{what}: row {label} does not bind")
+    m, J = out.objective.lp.m, out.objective.lp.num_destinations
+    lam_block = lam[:m * J].reshape(m, J)
+    times = {"multi_budget": [], "matching": []}
+    for _ in range(2):      # in turns
+        times["matching"].append(cuda_ms(
+            lambda: out.objective.calculate(lam_block, g), reps=10))
+        times["multi_budget"].append(cuda_ms(
+            lambda: obj.calculate(lam, g), reps=10))
+
+    def fold():
+        for si, slab in enumerate(obj.lp.slabs):
+            shift = obj._shift_for(si, mus)
+            slab.c_vals + shift
+            _shift_term(shift, obj._views(si, slab)[0])
+    t_fold = cuda_ms(fold)
+    log(f"{what}: one evaluation (CUDA events, median of 10, in turns) "
+        f"multi_budget {times['multi_budget']} ms against matching "
+        f"{times['matching']} ms at the same destination block; the shift "
+        f"fold alone (per slab: build mu_c + mu_v w, add it to c, take "
+        f"<shift, x> back out) {t_fold:.4f} ms")
+    return launches
+
+
+def formulation_assignment(inst):
+    """Phase 9 (b): assignment_eq at full width through the CLI entry
+    point for a fixed FORM_FIXED iterations: finite, K2 launched, K1
+    never (its simplex_eq block has no kernel, in the reference either:
+    the plain sweep projects it).  Returns the run's launches."""
+    import torch
+    from repro_torch.launch import solve
+    args = solve.build_parser().parse_args(
+        MAIN_ARGS[:8] + ["--formulation", "assignment_eq", "--iterations",
+                         str(FORM_FIXED), "--json", "--device", DEVICE])
+    what = "formulations: main path, assignment_eq"
+    reset_counters()
+    out_a = solve.run(args, log=lambda msg: log(f"  {msg}"), instance=inst)
+    launches = read_counters()
+    res = out_a.result
+    log(f"{what} result: {json.dumps(res, sort_keys=True)}")
+    log(f"{what}: set-up {out_a.setup_seconds:.2f} s, {FORM_FIXED} "
+        f"iterations in {out_a.solve_seconds:.3f} s "
+        f"({out_a.solve_seconds / FORM_FIXED * 1e3:.3f} ms/iteration); "
+        f"launches {launches}: K1 (dual_x_slab) 0, since the simplex_eq "
+        f"block has no kernel (the reference's compiler keeps it off its "
+        f"kernels too) and every slab runs the plain sweep; K2 runs the Ax")
+    require(res["iterations_run"] == FORM_FIXED
+            and bool(torch.isfinite(out_a.lam).all())
+            and math.isfinite(res["dual_obj_final"]),
+            f"{what}: non-finite lambda or dual")
+    require(launches["ax_reduce_plan_x"] > 0 and launches["dual_x_slab"] == 0,
+            f"{what}: K2 did not run, or K1 ran: {launches}")
+    t_eval, t_enq, busy = evaluation_timing(out_a.objective, out_a.lam,
+                                            out_a.gamma, reps=3)
+    log(f"{what}: one evaluation {t_eval:.3f} ms synchronised, host "
+        f"enqueue {t_enq:.3f} ms, device kernel time "
+        + ("not measured" if busy is None else f"{busy:.3f} ms"))
+    return launches
+
+
+def compiled_matching(out):
+    """Phase 9 (c): `compile_formulation(matching)` on phase 3's LP equals
+    phase 3's objective bit for bit at its final lambda."""
+    import torch
+    from repro_torch import formulations
+    obj = out.objective
+    comp = formulations.compile_formulation(
+        formulations.build("matching", obj.lp), obj.lp)
+    g = torch.full((), out.gamma, device=DEVICE)
+    g1, d1, a1 = obj.calculate(out.lam, g)
+    g2, d2, a2 = comp.calculate(out.lam.reshape(-1), g)
+    require(calculate_bits_equal((g1, d1.reshape(-1), a1), (g2, d2, a2)),
+            "compiled matching differs from phase 3's objective")
+    log("formulations: compile_formulation(matching) equals phase 3's "
+        "objective bit for bit at its final lambda (g, grad, aux)")
+
+
+def formulation_solve(lp_np, name, mode="aligned", algorithm="agd"):
+    """One perf_lp/tol_<algorithm>_<name> solve on the card, as the
+    reference's rows ran: compiled with row_norm from the un-preconditioned
+    instance, gamma 0.01, max_step 0.1, tol_rel_dual 1e-6 and
+    tol_infeas_rel 1e-4 every 25, at most 30,000 iterations.  Returns
+    (result, seconds, launches)."""
+    import torch
+    from repro_torch import formulations
+    from repro_torch.convert import lp_to_torch
+    from repro_torch.core import Maximizer, SolveConfig, StoppingCriteria
+    obj = formulations.make_objective(name, lp_to_torch(lp_np, DEVICE),
+                                      ax_mode=mode, row_norm=True)
+    cfg = SolveConfig(iterations=30000, gamma=0.01, max_step=1e-1,
+                      initial_step=1e-5)
+    crit = StoppingCriteria(tol_rel_dual=1e-6, tol_infeas_rel=1e-4,
+                            check_every=PARITY_CHECK)
+    torch.cuda.synchronize()
+    reset_counters()
+    t0 = time.perf_counter()
+    res = Maximizer(cfg, algorithm=algorithm).maximize(obj, criteria=crit)
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0, read_counters()
+
+
+def formulation_parity():
+    """Phase 9 (d): the reference's perf_lp formulation rows on the card:
+    agd twice on global_count, multi_budget and assignment_eq (each pair
+    bit-identical), pdhg on each, bb on multi_budget and assignment_eq,
+    each converged, its dual within 1e-4 of the recorded one and its stop
+    inside FORM_WINDOWS; then multi_budget in aligned_gvals (K3 + K4)
+    along aligned's trajectory bit for bit.  Returns each run's
+    launches."""
+    import numpy as np
+    import torch
+    from repro_torch.core import InstanceSpec, generate, validate_lp
+    spec = InstanceSpec(num_sources=2000, num_destinations=1000,
+                        avg_nnz_per_row=4.0, seed=42)
+    lp_np = validate_lp(generate(spec))
+    launches = {}
+
+    def run(name, rule, mode="aligned"):
+        res, dt, n = formulation_solve(lp_np, name, mode, rule)
+        lo, hi = FORM_WINDOWS[rule, name]
+        rec_it, rec_dual = FORM_RECORDED[rule, name]
+        dual = float(res.stats.dual_obj[-1])
+        rel = abs(dual - rec_dual) / abs(rec_dual)
+        what = f"parity perf_lp/tol_{rule}_{name} {mode}"
+        log(f"{what}: {res.stop_reason.value} after {res.iterations_run} "
+            f"iterations (recorded {rec_it}, window {lo}..{hi}, held within "
+            f"one check of it); dual {dual:.6f} vs {rec_dual:.6f} (rel "
+            f"{rel:.2e}, limit 1e-4); {dt:.2f} s, "
+            f"{dt / max(res.iterations_run, 1) * 1e3:.3f} ms/iter; "
+            f"launches {n}")
+        require(res.converged, f"{what} did not converge")
+        require(rel <= 1e-4, f"{what}: dual off by {rel:.2e}")
+        require(lo - PARITY_CHECK <= res.iterations_run <= hi + PARITY_CHECK,
+                f"{what} stopped at {res.iterations_run}, outside "
+                f"{lo}..{hi}")
+        launches[f"{rule} {name} {mode}"] = n
+        return res
+
+    agd = {}
+    for name in ("global_count", "multi_budget", "assignment_eq"):
+        r1, r2 = run(name, "agd"), run(name, "agd")
+        require(r1.iterations_run == r2.iterations_run
+                and torch.equal(r1.lam, r2.lam),
+                f"two agd {name} parity runs differ")
+        log(f"parity: two agd {name} runs bit-identical (iterations and "
+            f"lambda)")
+        agd[name] = r1
+    for name in ("global_count", "multi_budget", "assignment_eq"):
+        run(name, "pdhg")
+    for name in ("multi_budget", "assignment_eq"):
+        run(name, "bb")
+    res_g = run("multi_budget", "agd", "aligned_gvals")
+    a = agd["multi_budget"]
+    require(res_g.iterations_run == a.iterations_run
+            and torch.equal(res_g.lam, a.lam)
+            and all(np.array_equal(u, v) for u, v in zip(res_g.stats,
+                                                            a.stats)),
+            "multi_budget: aligned_gvals's trajectory differs from aligned's")
+    log("parity: multi_budget in aligned_gvals (K3 + K4) follows aligned's "
+        "trajectory bit for bit (every iteration's stats, lambda)")
+    return launches
+
+
 def reset_counters():
     for fn in WRAPPERS.values():
         fn.launches = 0
@@ -1891,11 +2139,9 @@ def main() -> int:
     # 8. the other update rules and the fault-tolerance path
     t_rules = time.perf_counter()
     by_rule = main_path_rules(args, inst, out.result["dual_obj_final"])
-    del inst
     torch.cuda.empty_cache()
     fault_tolerance(args, out.objective, out.lam,
                     out.result["iterations_run"])
-    del out
     torch.cuda.empty_cache()
     rule_parity()
     cli_flags()
@@ -1903,6 +2149,22 @@ def main() -> int:
     for name in ("dual_x_slab", "ax_reduce_plan_x"):
         records[name]["launches_by_rule"] = {
             rule: n[name] for rule, n in by_rule.items()}
+
+    # 9. the formulations
+    t_forms = time.perf_counter()
+    by_form = {"multi_budget pdhg (main path)":
+               formulation_main_path(inst, out),
+               "assignment_eq (main path)": formulation_assignment(inst)}
+    del inst
+    torch.cuda.empty_cache()
+    compiled_matching(out)
+    del out
+    torch.cuda.empty_cache()
+    by_form.update(formulation_parity())
+    log(f"phase 9 (formulations): {time.perf_counter() - t_forms:.1f} s")
+    for name, rec in records.items():
+        rec["launches_by_formulation"] = {
+            run: n[name] for run, n in by_form.items()}
 
     kernels = []
     for name, rec in records.items():

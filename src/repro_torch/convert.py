@@ -43,12 +43,19 @@ def plan_to_torch(plan, device) -> AxPlan:
     return AxPlan(buckets=buckets, inv_perm=_t(plan.inv_perm, device))
 
 
+def to_numpy(a) -> np.ndarray:
+    """A tensor on any device, or anything numpy reads, as a host array."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
+
+
 def lp_to_numpy(lp: LPData) -> LPData:
-    """Host numpy copy of a torch LPData (the certificate's independent
-    accumulation runs in numpy)."""
-    return LPData(slabs=tuple(Slab(*(leaf.cpu().numpy() for leaf in s))
+    """Host numpy copy of an LPData with tensor (or numpy) leaves: the
+    certificate's independent accumulation runs in numpy."""
+    return LPData(slabs=tuple(Slab(*(to_numpy(leaf) for leaf in s))
                               for s in lp.slabs),
-                  b=lp.b.cpu().numpy())
+                  b=to_numpy(lp.b))
 
 
 def lam_to_torch(lam, device) -> torch.Tensor:

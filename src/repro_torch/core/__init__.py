@@ -3,14 +3,17 @@
   Maximizer.maximize(obj, λ0)        -> SolveResult
   MatchingObjective.calculate(λ, γ)  -> (g, ∇g, aux)   (any ax_mode)
   GlobalCountObjective               the same with one global count row
+  ProjectionMap                      each slab's projection kind and steps
 """
 from .types import (AxBucket, AxPlan, ConvergenceCheck, HealthConfig,
                     IterStats, LPData, Slab, SolveConfig, SolveResult,
                     SolveState, StopReason, StoppingCriteria)
-from .projections import project, project_box, project_boxcut
+from .projections import (ProjectionMap, project, project_box,
+                          project_boxcut, project_boxcut_exact_1d,
+                          project_boxcut_newton)
 from .objectives import (AX_MODES, GlobalCountObjective, MatchingObjective,
                          ObjectiveAux, dual_value_and_grad, slab_xcarry,
-                         slab_xgvals)
+                         slab_xgvals, slab_xstar)
 from .maximizer import Maximizer, SolveEngine, maximize
 from .update_rules import (UpdateRule, gamma_at, get_rule, max_step_at,
                            register_rule, rule_names)
@@ -24,9 +27,10 @@ __all__ = [
     "AxBucket", "AxPlan", "ConvergenceCheck", "HealthConfig", "IterStats",
     "LPData", "Slab", "SolveConfig", "SolveResult", "SolveState",
     "StopReason", "StoppingCriteria",
-    "project", "project_box", "project_boxcut",
+    "ProjectionMap", "project", "project_box", "project_boxcut",
+    "project_boxcut_exact_1d", "project_boxcut_newton",
     "AX_MODES", "GlobalCountObjective", "MatchingObjective", "ObjectiveAux",
-    "dual_value_and_grad", "slab_xcarry", "slab_xgvals",
+    "dual_value_and_grad", "slab_xcarry", "slab_xgvals", "slab_xstar",
     "Maximizer", "SolveEngine", "maximize",
     "UpdateRule", "gamma_at", "get_rule", "max_step_at", "register_rule",
     "rule_names",

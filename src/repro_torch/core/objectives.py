@@ -25,8 +25,12 @@ selects both (DESIGN.md §3):
                    by atomics, in float64 so that their order does not
                    move the float32 result).
 
+Each slab projects with its own (kind, iters) from a `ProjectionMap`;
+the kinds with no kernel (simplex_eq, boxcut_newton) run the plain sweep,
+as the reference's compiler keeps them off its kernels.
 `GlobalCountObjective` adds one all-ones dual row through the scalar
-`shift` hook of both sweeps.
+`shift` hook of both sweeps; the formulations' `ComposedObjective` adds
+weighted rows through its per-edge form.
 """
 from __future__ import annotations
 
@@ -36,6 +40,7 @@ import numpy as np
 import torch
 
 from ..kernels import ops as kops
+from . import projections
 from .instance import build_ax_plan
 from .types import AxPlan, LPData, Slab
 
@@ -49,49 +54,131 @@ class ObjectiveAux(NamedTuple):
     infeas: torch.Tensor       # ‖(Ax−b)₊‖₂
 
 
-def _check_shift(shift):
-    if shift is not None and torch.as_tensor(shift).ndim:
-        raise NotImplementedError(
-            "only a scalar shift is ported; the per-edge coupling shift "
-            "comes with the formulations (ROADMAP queue A item 11)")
+def _shift_term(shift, x) -> torch.Tensor:
+    """The shift's part of cᵀx when the kernel saw c + shift: shift·Σx for
+    a scalar shift, <shift, x> for an (n, w) one (x is 0 on padding)."""
+    if torch.as_tensor(shift).ndim:
+        return (shift.float() * x.float()).sum()
+    return shift * x.float().sum()
+
+
+def _plain_u(slab: Slab, lam, gamma, shift):
+    """u = −(Σ_k a_k ⊙ λ_k[dest] + shift + c)/γ in the reference's order of
+    operations (its jnp sweep)."""
+    d = slab.dest_idx.long()
+    atl = torch.zeros(slab.c_vals.shape, dtype=slab.a_vals.dtype,
+                      device=slab.a_vals.device)
+    for k in range(slab.m):
+        atl = atl + slab.a_vals[:, :, k] * lam[k][d]
+    if shift is not None:
+        atl = atl + shift
+    gamma = torch.as_tensor(gamma, device=slab.c_vals.device).to(
+        slab.c_vals.dtype)
+    return -(atl + slab.c_vals) / gamma
+
+
+class ProjectionGraph:
+    """One slab's plain projection, `projections.project(kind, u, ub, s,
+    mask, iters)`, captured once as a CUDA graph and replayed with u
+    copied in.  Its fixed-count bisection is ~10 small launches a step,
+    ~600 a slab, which eager PyTorch launches one by one (35–43
+    ms/iteration at parity size on an H100, PERF.md §6); a replay
+    runs the same kernels, so x keeps its bits.  Returns a buffer the next
+    replay overwrites."""
+
+    def __init__(self, slab: Slab, kind: str, iters: int):
+        self.u = torch.zeros_like(slab.c_vals)
+        args = (kind, self.u, slab.ub, slab.s, slab.mask)
+        side = torch.cuda.Stream(slab.c_vals.device)
+        side.wait_stream(torch.cuda.current_stream(slab.c_vals.device))
+        with torch.cuda.stream(side):       # warm-up, outside the capture
+            projections.project(*args, iters=iters)
+        torch.cuda.current_stream(slab.c_vals.device).wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.x = projections.project(*args, iters=iters)
+
+    def __call__(self, u: torch.Tensor) -> torch.Tensor:
+        self.u.copy_(u)
+        self.graph.replay()
+        return self.x
+
+
+def _plain_sweep(slab: Slab, lam, gamma, proj_kind: str, proj_iters: int,
+                 shift, out: Optional[torch.Tensor], project=None):
+    """(x*, cᵀx, ‖x‖²) of one slab whose kind has no kernel (simplex_eq,
+    boxcut_newton): gather λ, form u, `projections.project`, as the
+    reference's jnp sweep does.  `out` (n, w) receives x when given.
+    `project`, when given, is the slab's `ProjectionGraph`."""
+    u = _plain_u(slab, lam, gamma, shift)
+    if project is None:
+        x = projections.project(proj_kind, u, slab.ub, slab.s, slab.mask,
+                                iters=proj_iters)
+    else:
+        x = project(u)
+    x = x.to(slab.c_vals.dtype)
+    if out is not None:
+        out.copy_(x)
+        x = out
+    elif project is not None:
+        x = x.clone()
+    return (x, (slab.c_vals * x).float().sum(), (x * x).float().sum())
 
 
 def slab_xcarry(slab: Slab, lam, gamma, proj_kind: str, proj_iters: int = 40,
-                out: Optional[torch.Tensor] = None, shift=None):
+                out: Optional[torch.Tensor] = None, shift=None, project=None):
     """Gvals-free per-slab forward pass: (x*, cᵀx, ‖x‖²).  `out` (n, w)
     receives x when given.
 
-    `shift` is a scalar coupling-row contribution to u (GlobalCount's μ):
-    it is folded into c for the kernel, and the kernel's cᵀx, which then
-    includes shift·Σx (x is 0 on padding), is corrected back, as the
-    reference's kernel path does.
+    `shift` is the coupling rows' contribution to u: a scalar (the
+    all-ones rows' μ) or an (n, w) tensor (weighted rows, 0 on padding).
+    For the kernel it is folded into c, and the kernel's cᵀx, which then
+    includes the shift term, is corrected back, as the reference's kernel
+    path does.  A kind with no kernel runs the plain sweep instead
+    (through `project`, the slab's `ProjectionGraph`, when given); the
+    route follows the kind alone.
     """
-    _check_shift(shift)
+    if proj_kind not in kops.KERNEL_KINDS:
+        return _plain_sweep(slab, lam, gamma, proj_kind, proj_iters, shift,
+                            out, project)
     if shift is None:
         return kops.dual_x_full(slab, lam, gamma, proj_kind, proj_iters,
                                 out=out)
     x, c_x, x_sq = kops.dual_x_full(
         slab._replace(c_vals=slab.c_vals + shift), lam, gamma, proj_kind,
         proj_iters, out=out)
-    return x, c_x - shift * x.float().sum(), x_sq
+    return x, c_x - _shift_term(shift, x), x_sq
 
 
 def slab_xgvals(slab: Slab, lam, gamma, proj_kind: str, proj_iters: int = 40,
                 shift=None, out: Optional[torch.Tensor] = None,
-                gvals_out: Optional[torch.Tensor] = None):
+                gvals_out: Optional[torch.Tensor] = None, project=None):
     """Fused per-slab forward pass: (x*, gvals, cᵀx, ‖x‖²), kernel
     `dual_grad`.  `out` (n, w) and `gvals_out` (n, w, m) receive x and
-    gvals when given.  `shift` as in `slab_xcarry`; x, cᵀx and ‖x‖² are
-    the x-carry sweep's bit for bit."""
-    _check_shift(shift)
+    gvals when given.  `shift` and the route as in `slab_xcarry`; x, cᵀx
+    and ‖x‖² are the x-carry sweep's bit for bit."""
+    if proj_kind not in kops.KERNEL_KINDS:
+        x, c_x, x_sq = _plain_sweep(slab, lam, gamma, proj_kind, proj_iters,
+                                    shift, out, project)
+        gvals = slab.a_vals * x[..., None]
+        if gvals_out is not None:
+            gvals_out.copy_(gvals)
+            gvals = gvals_out
+        return x, gvals, c_x, x_sq
     kslab = slab if shift is None else slab._replace(
         c_vals=slab.c_vals + shift)
     x, gvals, c_x, x_sq = kops.dual_grad_full(
         kslab, lam, gamma, proj_kind, proj_iters, out=out,
         gvals_out=gvals_out)
     if shift is not None:
-        c_x = c_x - shift * x.float().sum()
+        c_x = c_x - _shift_term(shift, x)
     return x, gvals, c_x, x_sq
+
+
+def slab_xstar(slab: Slab, lam, gamma, proj_kind: str,
+               proj_iters: int = 40) -> torch.Tensor:
+    """x*(λ) for one slab: gather λ, form u, project.  Returns (n, w)."""
+    return slab_xcarry(slab, lam, gamma, proj_kind, proj_iters)[0]
 
 
 def _segment_ax(gvals_flat: torch.Tensor, flat_dest: torch.Tensor,
@@ -159,20 +246,28 @@ class MatchingObjective:
     """Paper §4 `ObjectiveFunction` facade over an LP on one device, in any
     of the reference's `ax_mode`s (module docstring).
 
+    Slab i projects with `projection_map`'s kind and iteration count for
+    block i, or with `proj_kind` and `proj_iters` when no map is given.
     The sweep writes each slab's x (and, in the gvals modes, its gvals)
     into a slice of one flat buffer in slab-concatenation order, allocated
     once here.  Each slice starts on a 16-byte boundary, and the plan's
     edge indices are mapped to that layout where it leaves gaps.
     """
 
-    def __init__(self, lp: LPData, proj_kind: str = "boxcut",
-                 proj_iters: int = 40, ax_mode: str = "aligned",
-                 ax_plan: Optional[AxPlan] = None):
+    def __init__(self, lp: LPData, projection_map=None,
+                 proj_kind: str = "boxcut", proj_iters: int = 40,
+                 ax_mode: str = "aligned", ax_plan: Optional[AxPlan] = None):
         if ax_mode not in AX_MODES:
             raise ValueError(f"ax_mode must be one of {AX_MODES}, got {ax_mode!r}")
         self.lp = lp
-        self.proj_kind = proj_kind
-        self.proj_iters = proj_iters
+        # each slab's (kind, iters): a ProjectionMap's default and its
+        # per-bucket overrides (block id == slab index), or one kind for all
+        pmap = (projection_map if projection_map is not None
+                else projections.ProjectionMap(proj_kind, iters=proj_iters))
+        self.proj_kind = pmap.kind
+        self.proj_iters = pmap.iters
+        self._slab_proj = tuple((pmap.kind_for(i), pmap.iters_for(i))
+                                for i in range(len(lp.slabs)))
         self.ax_mode = ax_mode
         device = lp.b.device
         if ax_mode in ("aligned", "aligned_gvals"):
@@ -234,6 +329,14 @@ class MatchingObjective:
             self._perm = order if to_buf is None else to_buf(order)
             self._lengths = torch.from_numpy(np.bincount(
                 dests[real], minlength=lp.num_destinations)).to(device)
+        # on the card, the sweep projects each slab whose kind has no
+        # kernel through a CUDA graph of its plain projection
+        self._graphs = {
+            i: ProjectionGraph(s, kind, iters)
+            for i, (s, (kind, iters)) in enumerate(zip(lp.slabs,
+                                                       self._slab_proj))
+            if device.type == "cuda" and kind not in kops.KERNEL_KINDS
+            and s.n * s.width}
 
     @property
     def dual_shape(self) -> Tuple[int, ...]:
@@ -262,23 +365,30 @@ class MatchingObjective:
                                         axis=0, unsafe=True, initial=0.0).T
         return _segment_ax(self._gbuf, self._flat_dest, J)
 
+    def _sweep_slab(self, i: int, lam, gamma, shift):
+        """One slab of the sweep, its x (and gvals) written into the flat
+        buffers: x-carry in `aligned`, gvals in the other modes.  Returns
+        (x, cᵀx, ‖x‖²)."""
+        slab = self.lp.slabs[i]
+        kind, iters = self._slab_proj[i]
+        xv, gv = self._views(i, slab)
+        project = self._graphs.get(i)
+        if gv is None:
+            return slab_xcarry(slab, lam, gamma, kind, iters, out=xv,
+                               shift=shift, project=project)
+        x, _, c_s, sq_s = slab_xgvals(slab, lam, gamma, kind, iters,
+                                      shift=shift, out=xv, gvals_out=gv,
+                                      project=project)
+        return x, c_s, sq_s
+
     def _forward(self, lam, gamma, shift=None, with_xsum: bool = False):
         """The slab sweep and the Ax reduction: (Ax, cᵀx, ‖x‖², Σx); Σx is
         0 unless `with_xsum`."""
         c_x = torch.zeros((), dtype=lam.dtype, device=lam.device)
         x_sq = torch.zeros((), dtype=lam.dtype, device=lam.device)
         x_sum = torch.zeros((), dtype=lam.dtype, device=lam.device)
-        for i, slab in enumerate(self.lp.slabs):
-            xv, gv = self._views(i, slab)
-            if gv is None:
-                x, c_s, sq_s = slab_xcarry(slab, lam, gamma, self.proj_kind,
-                                           self.proj_iters, out=xv,
-                                           shift=shift)
-            else:
-                x, _, c_s, sq_s = slab_xgvals(slab, lam, gamma,
-                                              self.proj_kind,
-                                              self.proj_iters, shift=shift,
-                                              out=xv, gvals_out=gv)
+        for i in range(len(self.lp.slabs)):
+            x, c_s, sq_s = self._sweep_slab(i, lam, gamma, shift)
             c_x = c_x + c_s
             x_sq = x_sq + sq_s
             if with_xsum:
@@ -294,29 +404,35 @@ class MatchingObjective:
                                      infeas=infeas)
 
     def _dual_parts(self, lam):
-        """Split a dual vector into (destination block λ, the scalar shift
-        of the extra rows or None): the hook every primal-recovery surface
-        goes through, so subclasses with extra dual rows recover x*
-        unchanged."""
-        return lam, None
+        """Split a dual vector into (destination block λ, per-slab shift
+        function): the hook every primal-recovery surface goes through, so
+        subclasses with extra dual rows recover x* unchanged.  The function
+        maps a slab index to that slab's coupling shift (None, a scalar, or
+        an (n, w) tensor)."""
+        return lam, lambda si: None
 
     def primal(self, lam, gamma):
         """The (padded) primal solution x*(λ), slab by slab."""
-        lam_block, shift = self._dual_parts(lam)
-        return [slab_xcarry(s, lam_block, gamma, self.proj_kind,
-                            self.proj_iters, shift=shift)[0]
-                for s in self.lp.slabs]
+        lam_block, shift_fn = self._dual_parts(lam)
+        return [slab_xcarry(s, lam_block, gamma, kind, iters,
+                            shift=shift_fn(si))[0]
+                for si, (s, (kind, iters)) in enumerate(
+                    zip(self.lp.slabs, self._slab_proj))]
 
     def primal_rows(self, lam, gamma, slab_index: int, rows) -> torch.Tensor:
         """x*(λ) for a subset of one slab's source rows — the serving path.
         Every operation is row-local, so the result equals the matching
         rows of `primal` bit for bit."""
-        lam_block, shift = self._dual_parts(lam)
+        lam_block, shift_fn = self._dual_parts(lam)
         slab = self.lp.slabs[slab_index]
+        kind, iters = self._slab_proj[slab_index]
         rows = torch.as_tensor(rows, device=slab.c_vals.device).long()
         sub = Slab(*(leaf.index_select(0, rows) for leaf in slab))
-        return slab_xcarry(sub, lam_block, gamma, self.proj_kind,
-                           self.proj_iters, shift=shift)[0]
+        shift = shift_fn(slab_index)
+        if shift is not None and torch.as_tensor(shift).ndim:
+            shift = shift.index_select(0, rows)
+        return slab_xcarry(sub, lam_block, gamma, kind, iters,
+                           shift=shift)[0]
 
 
 class GlobalCountObjective(MatchingObjective):
@@ -347,10 +463,12 @@ class GlobalCountObjective(MatchingObjective):
 
     def _dual_parts(self, lam_flat):
         m, J = self.lp.m, self.lp.num_destinations
-        return lam_flat[:-1].reshape(m, J), lam_flat[-1] * self.row_scale
+        shift = lam_flat[-1] * self.row_scale
+        return lam_flat[:-1].reshape(m, J), lambda si: shift
 
     def calculate(self, lam_flat, gamma):
-        lam, shift = self._dual_parts(lam_flat)
+        lam, shift_fn = self._dual_parts(lam_flat)
+        shift = shift_fn(0)
         mu = lam_flat[-1]
         ax, c_x, x_sq, x_sum = self._forward(lam, gamma, shift=shift,
                                              with_xsum=True)

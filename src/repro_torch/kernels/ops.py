@@ -36,13 +36,18 @@ def proj_boxcut(v, ub, s, mask, iters: int = DEFAULT_ITERS):
     return _proj.proj_boxcut(v, ub, s, mask, iters=iters)
 
 
+# the projection kinds the sweep kernels (K1, K3) take; the others
+# (simplex_eq, boxcut_newton) have no kernel, in the reference either
+KERNEL_KINDS = ("boxcut", "simplex", "box")
+
+
 def _kind_slab(slab: Slab, proj_kind: str) -> Slab:
     """The kernels' projection-kind dispatch: simplex runs as box-cut with
     ub = 1e30; box and boxcut pass through (box keeps the slab's budget s,
     as in the reference); every other kind raises NotImplementedError."""
     if proj_kind == "simplex":
         return slab._replace(ub=torch.full_like(slab.ub, 1e30))
-    if proj_kind not in ("boxcut", "box"):
+    if proj_kind not in KERNEL_KINDS:
         raise NotImplementedError(
             f"the kernels support boxcut/simplex/box, got {proj_kind}")
     return slab

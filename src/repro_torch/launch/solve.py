@@ -1,12 +1,16 @@
-"""Matching-LP solve launcher of the port:
+"""LP solve launcher of the port:
 `python -m repro_torch.launch.solve [--sources N ...]`.
 
-Counterpart of `python -m repro.launch.solve --formulation matching` on one
-device: generate the instance, validate it, row-normalize it (§5.1), run
-the `--algorithm` update rule (agd, pga, pdhg, bb) through the chunked
-engine with the `--ax-mode` Ax reduction (default: the x-carry aligned
-path), and with `--certify` extract a repaired primal witness and print
-the duality-gap certificate.  `--json` prints one result object with the
+Counterpart of `python -m repro.launch.solve` on one device: generate the
+instance, validate it, and build the `--formulation`'s objective: for
+`matching` (the default) row-normalize the LP (§5.1) and take
+`MatchingObjective`; for any other registered formulation compile it from
+the un-preconditioned LP with the row normalization folded in, as the
+reference CLI does.  Then run the `--algorithm` update rule (agd, pga,
+pdhg, bb) through the chunked engine with the `--ax-mode` Ax reduction
+(default: the x-carry aligned path), and with `--certify` extract a
+repaired primal witness and print the duality-gap certificate over the
+formulation's constraint families.  `--json` prints one result object with the
 reference's keys (logs move to stderr).  Runs on the card by default and
 raises when there is none; `--device cpu` runs the plain versions.
 
@@ -41,6 +45,7 @@ from ..core import (HealthConfig, InstanceSpec, LPValidationError,
                     MatchingObjective, Maximizer, SolveConfig, StopReason,
                     StoppingCriteria, generate, get_rule, precondition,
                     rule_names, validate_lp)
+from .. import formulations
 
 
 def instance_fingerprint(lp) -> str:
@@ -129,14 +134,21 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--sources", type=int, default=100_000)
     ap.add_argument("--destinations", type=int, default=1_000)
     ap.add_argument("--nnz-per-row", type=float, default=None)
+    ap.add_argument("--formulation", default="matching",
+                    choices=formulations.names(),
+                    help="registered LP formulation (DESIGN.md §5); "
+                         "'matching' row-normalizes and solves the LP "
+                         "directly, the others compile onto the same solve "
+                         "loop")
     ap.add_argument("--ax-mode", default="aligned",
                     choices=["scatter", "sorted", "aligned",
                              "aligned_gvals"],
                     help="Ax reduction layout (default: aligned, the "
                          "value-carrying x-only path; aligned_gvals is the "
                          "gvals-based aligned lowering; scatter the "
-                         "scatter-add baseline).  sorted runs as scatter, "
-                         "as the reference CLI maps it")
+                         "scatter-add baseline).  With --formulation "
+                         "matching sorted runs as scatter, as the "
+                         "reference CLI maps it")
     ap.add_argument("--algorithm", default="agd", choices=rule_names(),
                     help="dual update rule: agd (the paper's accelerated "
                          "ascent), pdhg (restarted primal-dual), bb "
@@ -366,14 +378,28 @@ def run(args, log=print, instance: Optional[Instance] = None) -> Outcome:
     ckpt = (_Checkpoints(args, fingerprint, device, log)
             if args.checkpoint_dir else None)
     t0 = time.perf_counter()
+    form = (None if args.formulation == "matching"
+            else formulations.build(args.formulation, lp_np))
     lp = lp_to_torch(lp_np, device)
     del lp_np, instance
-    if not args.no_precondition:
-        lp, _ = precondition(lp, row_norm=True)
+    if form is None:
+        if not args.no_precondition:
+            lp, _ = precondition(lp, row_norm=True)
+        # the reference CLI's matching path has no "sorted" mode (its
+        # permutation would cross shard boundaries) and runs scatter for it
+        ax_mode = "scatter" if args.ax_mode == "sorted" else args.ax_mode
+        obj = MatchingObjective(lp, ax_mode=ax_mode)
+    else:
+        ax_mode = args.ax_mode
+        obj = formulations.compile_formulation(
+            form, lp, ax_mode=ax_mode, row_norm=not args.no_precondition)
+        slices = {k: f"{v.start}:{v.stop}"
+                  for k, v in obj.row_slices().items()}
+        log(f"formulation '{args.formulation}': {obj.dual_shape[0]} dual "
+            f"rows ({slices})")
     lam0 = None
     if args.warm_start and (ckpt is None or ckpt.state is None):
-        lam_np, meta = load_duals(args.warm_start,
-                                  (lp.m, lp.num_destinations),
+        lam_np, meta = load_duals(args.warm_start, obj.dual_shape,
                                   with_meta=True)
         lam0 = torch.as_tensor(lam_np, dtype=torch.float32, device=device)
         cfg, skipped, why = apply_warm_start_policy(cfg, meta, fingerprint)
@@ -383,10 +409,6 @@ def run(args, log=print, instance: Optional[Instance] = None) -> Outcome:
             log(f"WARNING: --warm-start with --continuation re-runs the γ "
                 f"schedule from gamma_init and will march the loaded λ away "
                 f"from its optimum ({why})")
-    # the reference CLI's matching path has no "sorted" mode (its
-    # permutation would cross shard boundaries) and runs scatter for it
-    ax_mode = "scatter" if args.ax_mode == "sorted" else args.ax_mode
-    obj = MatchingObjective(lp, ax_mode=ax_mode)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     t_solve = time.perf_counter()
@@ -425,7 +447,7 @@ def run(args, log=print, instance: Optional[Instance] = None) -> Outcome:
     gamma_last = float(res.stats.gamma[-1]) if d.size else cfg.gamma
     result = {
         "run_id": uuid.uuid4().hex[:12],
-        "formulation": "matching",
+        "formulation": args.formulation,
         "algorithm": args.algorithm,
         "iterations_run": int(res.iterations_run),
         "stop_reason": reason,

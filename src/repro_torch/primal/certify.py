@@ -1,5 +1,5 @@
 """Solution certification: duality-gap bounds and per-family slack reports;
-port of `repro.primal.certify` for the matching objective.
+port of `repro.primal.certify`.
 
 For min cᵀx s.t. Ax ≤ b, x ∈ C and its ridge-perturbed dual g_γ(λ):
 
@@ -8,11 +8,14 @@ For min cᵀx s.t. Ax ≤ b, x ∈ C and its ridge-perturbed dual g_γ(λ):
 
 So gap = cᵀx̂ − (g_γ(λ) − (γ/2)B) certifies the witness x̂ whenever the
 slack report — host numpy, independent of the solver's Ax path — shows it
-feasible.  The report covers the destination-capacity block, the global
-count row of `GlobalCountObjective` (in count units: its `row_scale` σ
-writes the same constraint as σ·Σx <= σ·count) and the blockwise set C
-itself.  The default witness is `repair_witness`: the capacity repair,
-then one uniform shrink until every global row holds.
+feasible.  The report covers every constraint family — through the
+compiled formulations' `family_report` hook, else the destination-capacity
+block and the global count row of `GlobalCountObjective` (in count units:
+its `row_scale` σ writes the same constraint as σ·Σx <= σ·count) — and the
+blockwise set C itself, per slab kind.  The default witness is
+`repair_witness`: the capacity repair, then one uniform shrink until every
+global row holds.  A simplex_eq block's witness breaks Σx = s under the
+shrinks, and its `blocks` family then reports the certificate INVALID.
 """
 from __future__ import annotations
 
@@ -21,7 +24,7 @@ from typing import Dict, List, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
-from ..convert import lp_to_numpy
+from ..convert import lp_to_numpy, to_numpy
 from .extract import extract_primal
 from .rounding import primal_ax, scale_repair
 
@@ -111,11 +114,11 @@ def _fallback_family_report(obj, lp, xs) -> Dict[str, dict]:
 
 def _block_report(obj, lp, xs) -> dict:
     """Residuals of the blockwise set C: x >= 0, x <= ub, Σx <= s (= s
-    for the objective's simplex_eq blocks)."""
-    kind = getattr(obj, "proj_kind", "boxcut")
+    for the objective's simplex_eq slabs, from its per-slab table)."""
+    kinds = getattr(obj, "_slab_proj", None)
     worst = 0.0
     scale = 1.0
-    for slab, x in zip(lp.slabs, xs):
+    for si, (slab, x) in enumerate(zip(lp.slabs, xs)):
         mask = np.asarray(slab.mask)
         xv = np.where(mask, np.asarray(x, np.float64), 0.0)
         ub = np.where(mask, np.asarray(slab.ub, np.float64), np.inf)
@@ -126,7 +129,7 @@ def _block_report(obj, lp, xs) -> dict:
         fin = np.isfinite(s)
         if fin.any():
             resid = xv.sum(axis=1)[fin] - s[fin]
-            if kind == "simplex_eq":
+            if kinds is not None and kinds[si][0] == "simplex_eq":
                 resid = np.abs(resid)
             worst = max(worst, float(np.max(resid, initial=0.0)))
             scale = max(scale, 1.0 + float(np.max(s[fin])))
@@ -135,12 +138,13 @@ def _block_report(obj, lp, xs) -> dict:
 
 
 def family_slacks(obj, xs, lp=None) -> Dict[str, FamilySlack]:
-    """Slack report at a candidate point: the row families and the
-    blockwise set C.  `lp` is `obj.lp` on the host, when the caller has
-    it already."""
+    """Slack report at a candidate point: the row families (the
+    objective's `family_report` where it has one) and the blockwise set
+    C.  `lp` is `obj.lp` on the host, when the caller has it already."""
     lp = lp_to_numpy(obj.lp) if lp is None else lp
-    raw = dict(_fallback_family_report(obj, lp, xs),
-               blocks=_block_report(obj, lp, xs))
+    raw = (obj.family_report(xs, lp) if hasattr(obj, "family_report")
+           else _fallback_family_report(obj, lp, xs))
+    raw = dict(raw, blocks=_block_report(obj, lp, xs))
     return {label: FamilySlack(
                 label=label, kind=d["kind"], used=d["used"], limit=d["limit"],
                 max_violation=d["max_violation"],
@@ -150,11 +154,22 @@ def family_slacks(obj, xs, lp=None) -> Dict[str, FamilySlack]:
 
 
 def global_row_caps(obj):
-    """[(per-slab weights or None, limit)] of every global row of `obj`
-    in count units: one all-ones row for `GlobalCountObjective`, none for
-    a plain `MatchingObjective`."""
-    count = getattr(obj, "count", None)
-    return [(None, float(count))] if count is not None else []
+    """[(per-slab host weights or None for all ones, limit)] of every
+    coupling row of `obj`, in ORIGINAL units (σ taken back out of a
+    compiled formulation's weights): the shape `rounding.greedy_repair`
+    takes.  One all-ones row for `GlobalCountObjective`, none for a plain
+    `MatchingObjective`."""
+    rows = getattr(obj, "_global_rows", None)
+    if not rows:
+        count = getattr(obj, "count", None)
+        return [(None, float(count))] if count is not None else []
+    out = []
+    for r in range(len(rows)):
+        w = obj._global_weights[r]
+        out.append((None if w is None else
+                    [to_numpy(ws).astype(np.float64) / obj._scales[r]
+                     for ws in w], obj._limits_raw[r]))
+    return out
 
 
 def repair_witness(obj, xs: Sequence[np.ndarray], eps: float = 1e-6,

@@ -739,3 +739,60 @@ def test_row_norms_repeatable_and_match_cpu(dev):
     np.testing.assert_allclose(on_card[0].cpu().numpy(),
                                row_norms(lp_to_torch(lp_np, "cpu")).numpy(),
                                rtol=1e-6)
+
+
+@pytest.mark.parametrize("mode", ["aligned", "aligned_gvals"])
+@pytest.mark.parametrize("name", ["matching", "global_count", "multi_budget",
+                                  "assignment_eq"])
+def test_composed_objective_on_card_matches_cpu(dev, name, mode):
+    """A compiled formulation on the card against the CPU's plain versions
+    at γ = 0.1: g at rtol 1e-5 and ∇g at atol 1e-5·max(1, ‖∇g‖∞) (float32
+    sums in another order).  The box-cut slabs launch K1 (K3 in
+    aligned_gvals) once each, with the coupling rows folded into c;
+    assignment_eq's simplex_eq slabs launch neither and take the plain
+    sweep; the Ax launches K2 (K4) once."""
+    from repro_torch import formulations
+    lp_np = generate(InstanceSpec(num_sources=20000, num_destinations=300,
+                                  avg_nnz_per_row=30, seed=3))
+    sweep = dual_x_slab if mode == "aligned" else dual_grad_slab
+    ax = ax_reduce_plan_x if mode == "aligned" else ax_reduce_plan
+    out = {}
+    for d in ("cpu", dev):
+        obj = formulations.make_objective(name, lp_to_torch(lp_np, d),
+                                          ax_mode=mode, row_norm=True)
+        lam = torch.from_numpy(np.random.default_rng(0).uniform(
+            0, 0.5, obj.dual_shape).astype(np.float32)).to(d)
+        k = (sweep.launches, ax.launches)
+        g, grad, _ = obj.calculate(lam, torch.full((), 0.1, device=d))
+        out[str(d)] = (g, grad, sweep.launches - k[0], ax.launches - k[1],
+                       len(obj.lp.slabs))
+    gc, dc, s_cpu, a_cpu, _ = out["cpu"]
+    g1, d1, s_gpu, a_gpu, n_slabs = out["cuda"]
+    assert s_cpu == 0 and a_cpu == 0
+    assert s_gpu == (0 if name == "assignment_eq" else n_slabs)
+    assert a_gpu == 1
+    np.testing.assert_allclose(float(g1), float(gc), rtol=1e-5)
+    np.testing.assert_allclose(d1.cpu().numpy(), dc.numpy(),
+                               atol=1e-5 * max(1.0, float(dc.abs().max())))
+
+
+def test_plain_sweep_graph_equals_eager(dev):
+    """assignment_eq's simplex_eq slabs project through one CUDA graph of
+    the plain projection each (`objectives.ProjectionGraph`): the sweep's
+    x equals `primal`'s eager projection bit for bit, and two evaluations
+    give the same bits."""
+    from repro_torch import formulations
+    lp_np = generate(InstanceSpec(num_sources=20000, num_destinations=300,
+                                  avg_nnz_per_row=30, seed=4))
+    obj = formulations.make_objective("assignment_eq", lp_to_torch(lp_np, dev),
+                                      row_norm=True)
+    assert sorted(obj._graphs) == list(range(len(obj.lp.slabs)))
+    lam = torch.from_numpy(np.random.default_rng(1).uniform(
+        0, 0.5, obj.dual_shape).astype(np.float32)).to(dev)
+    gamma = torch.full((), 0.05, device=dev)
+    first = obj.calculate(lam, gamma)
+    xs = obj.primal(lam, gamma)
+    for i, slab in enumerate(obj.lp.slabs):
+        assert torch.equal(obj._views(i, slab)[0], xs[i])
+    again = obj.calculate(lam, gamma)
+    assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])

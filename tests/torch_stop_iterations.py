@@ -2,7 +2,7 @@
 against port, on the CPU.
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/torch_stop_iterations.py \
-        [agd] [pdhg] [bb]
+        [--formulation NAME] [agd] [pdhg] [bb]
 
 The instance is the `--quick` one of `benchmarks/perf_lp.py` (2,000 x 1,000,
 nu = 4, seed 42, row-normalized, boxcut with 20 bisection steps, gamma
@@ -14,10 +14,16 @@ the port run under each of their ax modes; the reference's spread is what
 engine runs on the other package's objective (aligned): the reference's
 rule on the port's float32 evaluation of g and its gradient, and the
 port's rule on the reference's, which tells a fault of the rule from the
-objective's summation order.  Not collected by pytest: it takes several
-minutes.
+objective's summation order.
+
+`--formulation` (default matching) names a registered formulation: the
+other formulations run as the reference's perf_lp/tol_<rule>_<name> rows
+do, compiled from the un-preconditioned instance with row_norm, with the
+formulation's default projection steps, in each package's ax modes.  Not
+collected by pytest: it takes several minutes (an hour and more for bb
+on global_count).
 """
-import sys
+import argparse
 
 import numpy as np
 import torch
@@ -32,6 +38,7 @@ from repro.core.objectives import ObjectiveAux
 from repro.core.preconditioning import precondition
 
 import repro_torch.core as tcore
+from repro_torch import formulations as tformulations
 from repro_torch.convert import lp_to_torch
 
 SPEC = dict(num_sources=2000, num_destinations=1000, avg_nnz_per_row=4.0,
@@ -82,6 +89,47 @@ class ReferenceObjectiveForPort:
             infeas=t(aux.infeas))
 
 
+MODES = ("aligned", "aligned_gvals", "sorted", "scatter")
+
+
+def formulation(name, rules):
+    """The stops of formulation `name` under each rule: the reference's and
+    the port's objective in each ax mode, then each engine on the other
+    package's objective (aligned)."""
+    lp_host = generate(InstanceSpec(**SPEC))
+    lp_t_host = lp_to_torch(tcore.generate(tcore.InstanceSpec(**SPEC)), "cpu")
+
+    def ref_obj(mode):
+        return formulations.make_objective(name, lp_host, ax_mode=mode,
+                                           row_norm=True)
+
+    def port_obj(mode):
+        return tformulations.make_objective(name, lp_t_host, ax_mode=mode,
+                                            row_norm=True)
+
+    for rule in rules:
+        for mode in MODES:
+            show(f"{rule} {name} reference ax_mode={mode}",
+                 Maximizer(SolveConfig(**CONFIG), algorithm=rule).maximize(
+                     ref_obj(mode), criteria=StoppingCriteria(**CRITERIA)))
+        for mode in MODES:
+            show(f"{rule} {name} port ax_mode={mode}, cpu",
+                 tcore.Maximizer(tcore.SolveConfig(**CONFIG),
+                                 algorithm=rule).maximize(
+                     port_obj(mode),
+                     criteria=tcore.StoppingCriteria(**CRITERIA)))
+        robj, tobj = ref_obj("aligned"), port_obj("aligned")
+        show(f"{rule} {name} reference engine on the port's objective",
+             Maximizer(SolveConfig(**CONFIG), algorithm=rule).maximize(
+                 PortObjectiveForReference(tobj, robj.lp),
+                 criteria=StoppingCriteria(**CRITERIA)))
+        show(f"{rule} {name} port engine on the reference's objective",
+             tcore.Maximizer(tcore.SolveConfig(**CONFIG),
+                             algorithm=rule).maximize(
+                 ReferenceObjectiveForPort(robj, tobj.lp),
+                 criteria=tcore.StoppingCriteria(**CRITERIA)))
+
+
 def main(rules=("agd", "pdhg", "bb")):
     lp_host = generate(InstanceSpec(**SPEC))
     lp, _ = precondition(jax.tree.map(jnp.asarray, lp_host), row_norm=True)
@@ -125,4 +173,12 @@ def main(rules=("agd", "pdhg", "bb")):
 
 
 if __name__ == "__main__":
-    main(tuple(sys.argv[1:]) or ("agd", "pdhg", "bb"))
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--formulation", default="matching",
+                    choices=tformulations.names())
+    ap.add_argument("rules", nargs="*", default=["agd", "pdhg", "bb"])
+    opts = ap.parse_args()
+    if opts.formulation == "matching":
+        main(tuple(opts.rules))
+    else:
+        formulation(opts.formulation, tuple(opts.rules))

@@ -103,10 +103,32 @@ nothing of JAX or of the JAX package.  Phases, each failing loudly:
               ones, stops inside FORM_WINDOWS; multi_budget in
               aligned_gvals (K3 + K4) along aligned's trajectory bit for
               bit
+ 10. ranks    the distributed solve (repro_torch.core.distributed).  (a)
+              in this process, a one-rank NCCL group: the main path's
+              instance (still the one phase 3 generated) through the CLI
+              entry point, whose matching path is the distributed solve,
+              in aligned with --certify and in aligned_gvals: iterations,
+              final dual, lambda and certificate bit for bit phase 3's
+              and phase 5's, ms/iteration beside theirs, and the time of
+              one all_reduce of the step's m*J + 2 floats (CUDA events)
+              with its bytes.  (b) two ranks spawned on this card over
+              gloo at perf_lp/tol_agd's instance in aligned on a (2, 1)
+              grid, twice: converged, final dual within 1e-4 relative of
+              the reference's, stopped within one check of its window,
+              the two runs' bits compared and printed; then, if gloo
+              takes CUDA tensors in all_gather and reduce-scatter (probed
+              and printed either way), lambda split on a (1, 2) grid,
+              held the same.  Each rank has a hard timeout.  (c) with
+              more than one card, (b) over NCCL on every card; with one,
+              a line saying it was not run
 
 The last three lines of standard output are the card's name and power
 limit, the kernels' JSON record, and {"ok": true, "device": {...}}.  Exits
 non-zero, printing no result, when there is no card.
+
+  python3 chip_smoke.py --rank-worker SPEC
+
+is one rank of phase 10 (b) and (c), which spawns it.
 
   python3 chip_smoke.py --kernel-times DIR
 
@@ -1941,6 +1963,249 @@ def formulation_parity():
     return launches
 
 
+# phase 10: the ranks' hard timeout, and the (b) runs' grids
+RANK_TIMEOUT = 300
+RANK_RUNS = {"replicated": dict(shape=[2, 1], lambda_axis=None, runs=2),
+             "lambda-sharded": dict(shape=[1, 2], lambda_axis="model",
+                                    runs=1)}
+
+
+def probe_gloo_cuda(group):
+    """Whether gloo takes CUDA tensors in all_gather and reduce-scatter
+    (the λ-sharded mode's collectives): (True, "") or (False, the error).
+    Both ranks run the same probe, so a refusal is the same on each."""
+    import torch
+    from repro_torch.core.distributed import _all_gather, _reduce_scatter
+    world = torch.distributed.get_world_size()
+    x = torch.ones(4, device="cuda")
+    try:
+        _all_gather(torch.empty(4 * world, device="cuda"), x, group)
+        _reduce_scatter(torch.empty(4, device="cuda"),
+                        torch.ones(4 * world, device="cuda"), group)
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        return False, str(e).splitlines()[0][:200]
+    return True, ""
+
+
+def rank_worker(spec):
+    """`--rank-worker SPEC`: one rank of phase 10 (b)/(c).  Brings up the
+    group (gloo or NCCL over a FileStore, a collective timeout of 120 s),
+    solves perf_lp/tol_agd's instance distributed on the spec's grid in
+    aligned (`rank_solve`), and returns what it found."""
+    import datetime
+    import gc
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(spec["card"])
+    dist.init_process_group(spec["backend"],
+                            store=dist.FileStore(spec["store"],
+                                                 spec["world"]),
+                            rank=spec["rank"], world_size=spec["world"],
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        return rank_solve(spec)
+    finally:
+        # rank_solve let go of every subgroup; one that outlives the
+        # default group is torn down at exit, where gloo may abort
+        gc.collect()
+        dist.destroy_process_group()
+
+
+def rank_solve(spec):
+    import hashlib
+    import torch
+    from repro_torch.convert import lp_to_torch
+    from repro_torch.core import (DistributedMatchingObjective, InstanceSpec,
+                                  SolveConfig, StoppingCriteria, generate,
+                                  precondition, validate_lp)
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import init_ranks, make_grid
+    device = torch.device("cuda", spec["card"])
+    ranks = init_ranks(str(device))
+    require(ranks.grouped and ranks.world == spec["world"], f"ranks {ranks}")
+    grid = make_grid(spec["shape"], ("data", "model"))
+    found = {"rank": spec["rank"], "backend": spec["backend"],
+             "card": torch.cuda.get_device_name(device)}
+    if spec["lambda_axis"] is not None and spec["backend"] == "gloo":
+        ok, why = probe_gloo_cuda(grid.group((spec["lambda_axis"],)))
+        found["gloo_cuda_collectives"] = [ok, why]
+        if not ok:
+            return found
+    _build.build()
+    WRAPPERS.update(_wrappers())
+    lp = precondition(lp_to_torch(validate_lp(generate(InstanceSpec(
+        num_sources=2000, num_destinations=1000, avg_nnz_per_row=4.0,
+        seed=42))), "cpu"), row_norm=True)[0]
+    cfg = SolveConfig(iterations=30000, gamma=0.01, max_step=1e-1,
+                      initial_step=1e-5)
+    crit = StoppingCriteria(tol_rel_dual=1e-6, tol_infeas_rel=1e-4,
+                            check_every=PARITY_CHECK)
+    obj = DistributedMatchingObjective(
+        lp, grid, proj_kind="boxcut", proj_iters=20, ax_mode="aligned",
+        lambda_axis=spec["lambda_axis"], device=device)
+    found["rows"] = sum(s.n for s in obj.lp.slabs)
+    found["runs"] = []
+    reset_counters()
+    for _ in range(spec["runs"]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = obj.solve(cfg, criteria=crit)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        found["runs"].append({
+            "iterations": res.iterations_run,
+            "converged": res.converged,
+            "dual": float(res.stats.dual_obj[-1]),
+            "lam_sha256": hashlib.sha256(
+                res.lam.cpu().numpy().tobytes()).hexdigest(),
+            "seconds": dt})
+    found["launches"] = read_counters()
+    return found
+
+
+def spawn_ranks(world, backend, shape, lambda_axis, runs, per_card):
+    """Phase 10 (b)/(c): `world` rank processes of this script, on card 0
+    (`per_card` False) or one card each, each killed past RANK_TIMEOUT.
+    Returns every rank's findings."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as d:
+        procs = []
+        for r in range(world):
+            spec = dict(rank=r, world=world, backend=backend, shape=shape,
+                        lambda_axis=lambda_axis, runs=runs,
+                        card=r if per_card else 0,
+                        store=os.path.join(d, "store"), out=d)
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--rank-worker",
+                 json.dumps(spec)], cwd=ROOT, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True))
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=RANK_TIMEOUT)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, (p, text) in enumerate(zip(procs, logs)):
+            require(p.returncode == 0,
+                    f"rank {r} of {world} ({backend}) failed (rc "
+                    f"{p.returncode}):\n{text[-3000:]}")
+        return [json.load(open(os.path.join(d, f"rank{r}.json")))
+                for r in range(world)]
+
+
+def ranks_parity(what, world, backend, per_card):
+    """Phase 10 (b)/(c): the parity run on `world` ranks, replicated
+    (twice) and, where the collectives are taken, λ-sharded; each held to
+    the reference's window; every rank the same bits."""
+    lo, hi = PARITY_ITERATIONS
+    for mode, run in RANK_RUNS.items():
+        shape = ([world, 1] if run["lambda_axis"] is None else [1, world])
+        ranks = spawn_ranks(world, backend, shape, run["lambda_axis"],
+                            run["runs"], per_card)
+        probe = ranks[0].get("gloo_cuda_collectives")
+        if probe is not None:
+            log(f"ranks {what}: gloo {'takes' if probe[0] else 'refuses'} "
+                f"CUDA tensors in all_gather and reduce-scatter"
+                + ("" if probe[0] else f" ({probe[1]}); the lambda-sharded "
+                   f"run on {world} ranks was not run on the card (held by "
+                   f"the CPU tests only)"))
+            if not probe[0]:
+                continue
+        runs = ranks[0]["runs"]
+
+        def bits(r):
+            return [(x["iterations"], x["dual"], x["lam_sha256"])
+                    for x in r["runs"]]
+        for r in ranks[1:]:
+            require(bits(r) == bits(ranks[0]),
+                    f"ranks {what} {mode}: rank {r['rank']} differs from "
+                    f"rank 0")
+        for i, x in enumerate(runs):
+            rel = abs(x["dual"] - PARITY_DUAL) / abs(PARITY_DUAL)
+            log(f"ranks {what} {mode} on a {tuple(shape)} grid, run {i + 1}: "
+                f"{'converged' if x['converged'] else 'NOT converged'} after "
+                f"{x['iterations']} iterations (reference {lo}..{hi}, held "
+                f"within one check); dual {x['dual']:.6f} vs "
+                f"{PARITY_DUAL:.6f} (rel {rel:.2e}, limit 1e-4); "
+                f"{x['seconds']:.2f} s, "
+                f"{x['seconds'] / max(x['iterations'], 1) * 1e3:.3f} "
+                f"ms/iter; rank rows {[r['rows'] for r in ranks]}; "
+                f"launches of rank 0 {ranks[0]['launches']}")
+            require(x["converged"], f"ranks {what} {mode}: not converged")
+            require(rel <= 1e-4, f"ranks {what} {mode}: dual off by "
+                    f"{rel:.2e}")
+            require(lo - PARITY_CHECK <= x["iterations"] <= hi + PARITY_CHECK,
+                    f"ranks {what} {mode}: stopped at {x['iterations']}")
+        require(ranks[0]["launches"]["dual_x_slab"] > 0
+                and ranks[0]["launches"]["ax_reduce_plan_x"] > 0,
+                f"ranks {what} {mode}: K1/K2 never ran on rank 0")
+        if len(runs) > 1:
+            same = all((a["iterations"], a["lam_sha256"])
+                       == (runs[0]["iterations"], runs[0]["lam_sha256"])
+                       for a in runs[1:])
+            log(f"ranks {what} {mode}: the {len(runs)} runs' bits repeat "
+                f"(iterations and lambda): {same}")
+
+
+def distributed_one_rank(inst, main, gvals):
+    """Phase 10 (a): a one-rank NCCL group in this process, and the main
+    path through the CLI entry point (its matching path is the
+    distributed solve) in aligned (+ certificate) and aligned_gvals, each
+    bit for bit its single-device phase's (`main`, `gvals`: (result,
+    lambda, solve seconds)).  Returns the launches of each run."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch import solve
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        launches = {}
+        for mode, (res0, lam0, solve0), extra in (
+                ("aligned", main, []),
+                ("aligned_gvals", gvals, ["--ax-mode", "aligned_gvals"])):
+            flags = MAIN_ARGS + extra
+            if mode != "aligned":
+                flags = [a for a in flags if a != "--certify"]
+            args = solve.build_parser().parse_args(flags)
+            expect = (("dual_x_slab", "ax_reduce_plan_x") if mode == "aligned"
+                      else ("dual_grad_slab", "ax_reduce_plan"))
+            out, launches[mode], _ = drive(args, inst, expect,
+                                           f"ranks (a) one NCCL rank, {mode}")
+            res = out.result
+            same = (res["iterations_run"] == res0["iterations_run"]
+                    and res["dual_obj_final"] == res0["dual_obj_final"]
+                    and torch.equal(out.lam, lam0))
+            iters = res["iterations_run"]
+            log(f"ranks (a) {mode}: {iters} iterations, dual "
+                f"{res['dual_obj_final']!r}, certificate "
+                f"{res.get('certificate_valid', 'not asked')}; bit for bit "
+                f"the single-device run: {same}; solve loop "
+                f"{out.solve_seconds / max(iters, 1) * 1e3:.3f} ms/iteration "
+                f"against {solve0 / max(res0['iterations_run'], 1) * 1e3:.3f} "
+                f"single-device")
+            require(same, f"ranks (a) {mode}: one NCCL rank differs from the "
+                    f"single-device run")
+            if mode == "aligned":
+                require(res["certificate_valid"] is True
+                        and res0["certificate_valid"] is True,
+                        "ranks (a): certificate not valid")
+                m, J = out.lam.shape
+                buf = torch.zeros(m * J + 2, device="cuda")
+                ms = cuda_ms(lambda: dist.all_reduce(buf), reps=50)
+                log(f"ranks (a): one all_reduce of the step's m*J + 2 = "
+                    f"{m * J + 2} floats ({4 * (m * J + 2)} bytes) over one "
+                    f"NCCL rank: {ms:.4f} ms (CUDA events, median of 50)")
+            del out
+            torch.cuda.empty_cache()
+        return launches
+    finally:
+        dist.destroy_process_group()
+
+
 def reset_counters():
     for fn in WRAPPERS.values():
         fn.launches = 0
@@ -2038,6 +2303,8 @@ def main() -> int:
         "--kernel-times", metavar="ROOT",
         help="only time K1, K3 and K5 of the checkout at ROOT on the wide "
         "slabs (e.g. an unpacked copy of another commit) and print them")
+    parser.add_argument("--rank-worker", metavar="SPEC",
+                        help="one rank of phase 10 (spawned by it)")
     opts = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -2046,6 +2313,13 @@ def main() -> int:
     sys.path.insert(0, os.path.join(root, "src"))
     if opts.kernel_times:
         return kernel_times(root)
+    if opts.rank_worker:
+        spec = json.loads(opts.rank_worker)
+        found = rank_worker(spec)
+        with open(os.path.join(spec["out"], f"rank{spec['rank']}.json"),
+                  "w") as f:
+            json.dump(found, f)
+        return 0
     from repro_torch.kernels import _build
     from repro_torch.launch import solve
     WRAPPERS.update(_wrappers())
@@ -2113,6 +2387,7 @@ def main() -> int:
                                                 steps)
     records["ax_reduce_plan"] = check_ax_reduce_gvals(out_g.objective,
                                                       out.objective)
+    single_gvals = (out_g.result, out_g.lam, out_g.solve_seconds)
     del out_g
     torch.cuda.empty_cache()
     xs, us, n5 = proj_path(out.objective, lam, gamma)
@@ -2155,9 +2430,9 @@ def main() -> int:
     by_form = {"multi_budget pdhg (main path)":
                formulation_main_path(inst, out),
                "assignment_eq (main path)": formulation_assignment(inst)}
-    del inst
     torch.cuda.empty_cache()
     compiled_matching(out)
+    single_main = (out.result, out.lam, out.solve_seconds)
     del out
     torch.cuda.empty_cache()
     by_form.update(formulation_parity())
@@ -2165,6 +2440,24 @@ def main() -> int:
     for name, rec in records.items():
         rec["launches_by_formulation"] = {
             run: n[name] for run, n in by_form.items()}
+
+    # 10. the distributed solve: one NCCL rank at full width, two ranks
+    # on this card over gloo, NCCL over every card where there are more
+    t_ranks = time.perf_counter()
+    by_mode = distributed_one_rank(inst, single_main, single_gvals)
+    del inst
+    torch.cuda.empty_cache()
+    for name, rec in records.items():
+        rec["launches_distributed"] = {
+            f"{mode}, one NCCL rank": n[name] for mode, n in by_mode.items()}
+    ranks_parity("(b) two ranks on one card, gloo", 2, "gloo", False)
+    cards = torch.cuda.device_count()
+    if cards > 1:
+        ranks_parity(f"(c) {cards} cards, NCCL", cards, "nccl", True)
+    else:
+        log("ranks (c): one card on this machine; the multi-card NCCL path "
+            "was not run")
+    log(f"phase 10 (ranks): {time.perf_counter() - t_ranks:.1f} s")
 
     kernels = []
     for name, rec in records.items():

@@ -4,6 +4,8 @@
   MatchingObjective.calculate(λ, γ)  -> (g, ∇g, aux)   (any ax_mode)
   GlobalCountObjective               the same with one global count row
   ProjectionMap                      each slab's projection kind and steps
+  solve_distributed(lp, cfg, grid)   the same solve over torch.distributed
+                                     ranks (one all-reduce a step)
 """
 from .types import (AxBucket, AxPlan, ConvergenceCheck, HealthConfig,
                     IterStats, LPData, Slab, SolveConfig, SolveResult,
@@ -15,13 +17,17 @@ from .objectives import (AX_MODES, GlobalCountObjective, MatchingObjective,
                          ObjectiveAux, dual_value_and_grad, slab_xcarry,
                          slab_xgvals, slab_xstar)
 from .maximizer import Maximizer, SolveEngine, maximize
-from .update_rules import (UpdateRule, gamma_at, get_rule, max_step_at,
-                           register_rule, rule_names)
+from .update_rules import (LOCAL, DualReduce, UpdateRule, gamma_at,
+                           get_rule, max_step_at, register_rule, rule_names)
 from .preconditioning import (precondition, primal_scale, row_normalize,
                               row_norms, undo_primal_scaling,
                               undo_row_scaling)
 from .instance import (InstanceSpec, LPValidationError, build_ax_plan,
-                       generate, pack_slabs, validate_lp)
+                       build_sharded_ax_plan, generate, pack_slabs, to_dense,
+                       validate_lp)
+from .distributed import (DistributedMatchingObjective, ShardedDualReduce,
+                          pad_for_sharding, pad_slab_rows, place_lp,
+                          solve_distributed)
 
 __all__ = [
     "AxBucket", "AxPlan", "ConvergenceCheck", "HealthConfig", "IterStats",
@@ -32,10 +38,13 @@ __all__ = [
     "AX_MODES", "GlobalCountObjective", "MatchingObjective", "ObjectiveAux",
     "dual_value_and_grad", "slab_xcarry", "slab_xgvals", "slab_xstar",
     "Maximizer", "SolveEngine", "maximize",
-    "UpdateRule", "gamma_at", "get_rule", "max_step_at", "register_rule",
-    "rule_names",
+    "DualReduce", "LOCAL", "UpdateRule", "gamma_at", "get_rule",
+    "max_step_at", "register_rule", "rule_names",
     "precondition", "primal_scale", "row_normalize", "row_norms",
     "undo_primal_scaling", "undo_row_scaling",
-    "InstanceSpec", "LPValidationError", "build_ax_plan", "generate",
-    "pack_slabs", "validate_lp",
+    "InstanceSpec", "LPValidationError", "build_ax_plan",
+    "build_sharded_ax_plan", "generate", "pack_slabs", "to_dense",
+    "validate_lp",
+    "DistributedMatchingObjective", "ShardedDualReduce", "pad_for_sharding",
+    "pad_slab_rows", "place_lp", "solve_distributed",
 ]

@@ -261,13 +261,29 @@ def pack_slabs(src, dst, value, a, spec: InstanceSpec) -> LPData:
     return LPData(slabs=tuple(slabs), b=b.astype(np.float32))
 
 
-def _flat_edges(slabs):
+def _row_block(arr, row_slice: Optional[Tuple[int, int]]):
+    """The k-th of n equal row blocks of a slab leaf (`row_slice=(k, n)`),
+    or the leaf itself."""
+    if row_slice is None:
+        return arr
+    k, n = row_slice
+    if arr.shape[0] % n:
+        raise ValueError(f"{arr.shape[0]} slab rows do not split into {n} "
+                         f"blocks; pad them first (distributed.pad_slab_rows)")
+    nl = arr.shape[0] // n
+    return arr[k * nl:(k + 1) * nl]
+
+
+def _flat_edges(slabs, row_slice: Optional[Tuple[int, int]] = None):
     """(dest, flat_idx) of every real edge in the concatenated slab-edge
-    space."""
+    space; `row_slice=(k, n)` restricts to the k-th of n row blocks per slab
+    (the block partition `distributed.place_lp` uses), with flat indices in
+    the *local* edge space of that block."""
     dests, idxs, off = [], [], 0
     for s in slabs:
-        d = np.asarray(s.dest_idx).reshape(-1)
-        mk = np.asarray(s.mask).astype(bool).reshape(-1)
+        d = _row_block(np.asarray(s.dest_idx), row_slice).reshape(-1)
+        mk = _row_block(np.asarray(s.mask).astype(bool),
+                        row_slice).reshape(-1)
         keep = np.nonzero(mk)[0]
         dests.append(d[keep])
         idxs.append(off + keep)
@@ -284,11 +300,14 @@ def _pow2_widths(indeg: np.ndarray, min_width: int) -> np.ndarray:
                       .astype(np.int64))
 
 
-def _flat_a(slabs) -> np.ndarray:
+def _flat_a(slabs, row_slice: Optional[Tuple[int, int]] = None) -> np.ndarray:
     """(E, m) constraint weights in the concatenated slab-edge space (the
-    same flattening order as `_flat_edges`; 0 on padded positions)."""
-    parts = [np.asarray(s.a_vals).reshape(-1, np.asarray(s.a_vals).shape[-1])
-             for s in slabs]
+    same flattening order as `_flat_edges`; 0 on padded positions), with the
+    same optional per-slab row-block restriction."""
+    parts = []
+    for s in slabs:
+        a = _row_block(np.asarray(s.a_vals), row_slice)
+        parts.append(a.reshape(-1, a.shape[-1]))
     if not parts:
         return np.zeros((0, 1), np.float32)
     return np.concatenate(parts, axis=0)
@@ -355,8 +374,94 @@ def build_ax_plan(lp: LPData, min_width: int = 4,
         inv_perm=row_pos.astype(np.int32))
 
 
-def generate(spec: InstanceSpec) -> LPData:
-    """Generate an instance (host numpy leaves)."""
+def _shard_plan(lp: LPData, shard_edges, k: int, num_shards: int,
+                widths: np.ndarray, carry_values: bool):
+    d, i = shard_edges
+    return _pack_ax_rows(d, i, lp.num_destinations, widths,
+                         _flat_a(lp.slabs, row_slice=(k, num_shards))
+                         if carry_values else None)
+
+
+def build_sharded_ax_plan(lp: LPData, num_shards: int, min_width: int = 4,
+                          carry_values: bool = True,
+                          shard: Optional[int] = None) -> AxPlan:
+    """Per-shard AxPlans over the block row-partition of an (already
+    padded) LP: every shard's plan indexes its *local* slab-edge space (the
+    rows `distributed.place_lp` gives that rank).  Bucket widths are shared
+    across shards (the maximum local in-degree), so every shard's plan has
+    the same shapes; they come from every shard's in-degrees, one
+    `bincount` each, even when one shard is packed.
+
+    With `shard=None` the shards' plans are stacked on a leading shard
+    axis, as the reference returns them; with `shard=k` only shard k is
+    packed, and equals the k-th slice of that stack.
+    """
+    J = lp.num_destinations
+    shard_edges = [_flat_edges(lp.slabs, row_slice=(k, num_shards))[:2]
+                   for k in range(num_shards)]
+    indeg = np.stack([np.bincount(d, minlength=J)[:J]
+                      for d, _ in shard_edges])
+    widths = _pow2_widths(indeg.max(axis=0), min_width)
+    if shard is not None:
+        buckets, row_pos = _shard_plan(lp, shard_edges[shard], shard,
+                                       num_shards, widths, carry_values)
+        return AxPlan(
+            buckets=tuple(AxBucket(edge_idx=e, mask=m, dest_ids=d, a_dm=a)
+                          for e, m, d, a in buckets),
+            inv_perm=row_pos.astype(np.int32))
+    packed = [_shard_plan(lp, se, k, num_shards, widths, carry_values)
+              for k, se in enumerate(shard_edges)]
+    buckets = []
+    for bi in range(len(packed[0][0])):
+        buckets.append(AxBucket(
+            edge_idx=np.stack([p[0][bi][0] for p in packed]),
+            mask=np.stack([p[0][bi][1] for p in packed]),
+            dest_ids=np.stack([p[0][bi][2] for p in packed]),
+            a_dm=(np.stack([p[0][bi][3] for p in packed])
+                  if carry_values else None)))
+    inv = np.stack([p[1] for p in packed]).astype(np.int32)
+    return AxPlan(buckets=tuple(buckets), inv_perm=inv)
+
+
+def generate(spec: InstanceSpec,
+             shard: Optional[Tuple[int, int]] = None) -> LPData:
+    """Generate an instance (host numpy leaves); `shard=(k, n)` keeps only
+    the sources ≡ k (mod n).  b is not divided across shards: the
+    distributed objective sums the shards' Ax and subtracts b once."""
     src, dst = _edges(spec)
     value, a = _coefficients(spec, src, dst)
+    if shard is not None:
+        k, n = shard
+        keep = (src % n) == k
+        src, dst, value, a = src[keep], dst[keep], value[keep], a[:, keep]
     return pack_slabs(src, dst, value, a, spec)
+
+
+def to_dense(lp: LPData, num_sources: int, num_destinations: int):
+    """Densify (A, c, edges) for oracle checks on tiny instances: the
+    variables are the packed edges in slab order, A is (m·J, n_var) with
+    row k·J + j, c is (n_var,), and `edges` lists (source, destination, c,
+    a[m]) per variable.  The size arguments are the reference's signature;
+    the shape comes from the LP."""
+    edges = []
+    for slab in lp.slabs:
+        mask = np.asarray(slab.mask)
+        src = np.asarray(slab.source_ids)
+        dest = np.asarray(slab.dest_idx)
+        c_vals = np.asarray(slab.c_vals)
+        a_vals = np.asarray(slab.a_vals)
+        n, w = c_vals.shape
+        for r in range(n):
+            for q in range(w):
+                if bool(mask[r, q]):
+                    edges.append((int(src[r]), int(dest[r, q]),
+                                  float(c_vals[r, q]), a_vals[r, q]))
+    m, J = np.shape(lp.b)
+    nv = len(edges)
+    A = np.zeros((m * J, nv))
+    c = np.zeros(nv)
+    for col, (i, j, cv, av) in enumerate(edges):
+        c[col] = cv
+        for k in range(m):
+            A[k * J + j, col] = av[k]
+    return A, c, edges

@@ -19,6 +19,14 @@ to the last good snapshot and retries with backed-off steps; exhausted
 retries stop DIVERGED.  `checkpoint_fn`, `preempt_fn`, `initial_state`
 and `resume_meta` give checkpoint/resume.  Telemetry, the profiler and
 the memory sampler are not ported yet (ROADMAP queue A item 14).
+
+Under several ranks (`core.distributed`) every rank runs this loop, and
+every host decision must come out the same on each, or the next
+collective hangs.  The stopping test and the health verdict read stats
+that are all-reduced (ring all-reduce in NCCL and gloo leaves the same
+bits on every rank), so they agree by construction; the preempt signal,
+the wall clock and, with λ sharded, the finiteness flags are each rank's
+own, and `agree` makes them common with one small collective a chunk.
 """
 from __future__ import annotations
 
@@ -33,7 +41,7 @@ import torch
 from .types import (ConvergenceCheck, HealthConfig, HealthRecord, IterStats,
                     SolveConfig, SolveResult, SolveState, StopReason,
                     StoppingCriteria)
-from .update_rules import UpdateRule, gamma_at, get_rule
+from .update_rules import LOCAL, DualReduce, UpdateRule, gamma_at, get_rule
 
 
 def _copy_state(state: SolveState) -> SolveState:
@@ -92,11 +100,18 @@ class SolveEngine:
     """The one convergence-controlled solve loop (DESIGN.md §4)."""
 
     def __init__(self, calculate: Callable, config: SolveConfig,
-                 algorithm: str = "agd"):
+                 algorithm: str = "agd", reduce: DualReduce = LOCAL,
+                 agree: Optional[Callable] = None):
+        """`reduce` takes the rule's reductions over the dual vector (the
+        shards' sum when λ is sharded); `agree(flags) -> flags`, given
+        under several ranks, makes a chunk boundary's host flags the same
+        on every rank (a MAX over the ranks)."""
         self.calculate = calculate
         self.config = config
         self.algorithm = algorithm
         self.rule: UpdateRule = get_rule(algorithm)
+        self.reduce = reduce
+        self.agree = agree
         # fault-injection seam (DESIGN.md §9): when set, called after every
         # chunk as `hook(it_start, state, stats) -> (state, stats)` with the
         # chunk's stats still on the device.  Never set in production.
@@ -117,7 +132,8 @@ class SolveEngine:
                 return gamma
         rows = []
         for _ in range(length):
-            state, st = self.rule.step(self.calculate, config, gamma_fn, state)
+            state, st = self.rule.step(self.calculate, config, gamma_fn,
+                                       state, self.reduce)
             rows.append(torch.stack([t.to(torch.float32).reshape(())
                                      for t in st]))
         return state, torch.stack(rows, dim=1)
@@ -145,7 +161,10 @@ class SolveEngine:
           resume_meta    the checkpoint's meta ("gamma_now", "g_prev").
 
         Any of health/checkpoint_fn/preempt_fn/initial_state forces the
-        chunked path."""
+        chunked path.  Under several ranks (`agree` set), the preempt
+        poll, the wall-clock cap and the finiteness flags are made common
+        at each chunk boundary by one collective; the preempt poll then
+        stops the loop at the next boundary."""
         config = self.config
         total = config.iterations
         if criteria is not None and criteria.max_iterations is not None:
@@ -204,8 +223,16 @@ class SolveEngine:
             meta.update(self.rule.checkpoint_meta())
             return meta
 
+        def _polled() -> bool:
+            return preempt_fn is not None and bool(preempt_fn())
+
+        agree = self.agree
+        # under ranks: the preempt poll agreed at the last chunk boundary
+        # (here at the start, before any chunk has run)
+        preempt_agreed = (agree([_polled(), False, False])[0]
+                          if agree is not None else False)
         while it_done < total:
-            if preempt_fn is not None and preempt_fn():
+            if preempt_agreed if agree is not None else _polled():
                 stop_reason = StopReason.PREEMPTED
                 break
             n = min(check, total - it_done)
@@ -223,6 +250,12 @@ class SolveEngine:
             grad_norm = float(stats.grad_norm[-1])
             gamma_cur = float(stats.gamma[-1])
             elapsed = time.perf_counter() - t0
+            out_of_time = (criteria.max_seconds is not None
+                           and elapsed >= criteria.max_seconds)
+            if agree is not None:
+                preempt_agreed, out_of_time, nonfinite = agree(
+                    [_polled(), out_of_time, not arrays_finite])
+                arrays_finite = not nonfinite
 
             if health is not None:
                 status = _classify_chunk(health, arrays_finite, g, infeas,
@@ -293,8 +326,7 @@ class SolveEngine:
                 converged = True
                 stop_reason = StopReason.CONVERGED
                 break
-            if (criteria.max_seconds is not None
-                    and elapsed >= criteria.max_seconds):
+            if out_of_time:
                 stop_reason = StopReason.MAX_SECONDS
                 break
 
@@ -330,11 +362,13 @@ def maximize(calculate: Callable, lam0: torch.Tensor, config: SolveConfig,
              checkpoint_fn: Optional[Callable] = None,
              preempt_fn: Optional[Callable] = None,
              initial_state: Optional[SolveState] = None,
-             resume_meta: Optional[dict] = None) -> SolveResult:
+             resume_meta: Optional[dict] = None,
+             reduce: DualReduce = LOCAL,
+             agree: Optional[Callable] = None) -> SolveResult:
     """Thin wrapper over SolveEngine: fixed-length with no `criteria`,
-    tolerance-terminated with them; the fault-tolerance hooks pass
-    through."""
-    return SolveEngine(calculate, config, algorithm).solve(
+    tolerance-terminated with them; the fault-tolerance hooks and the
+    ranks' `reduce` and `agree` pass through."""
+    return SolveEngine(calculate, config, algorithm, reduce, agree).solve(
         lam0, criteria=criteria, diagnostics_fn=diagnostics_fn,
         infeas_scale=infeas_scale, health=health,
         checkpoint_fn=checkpoint_fn, preempt_fn=preempt_fn,

@@ -206,10 +206,13 @@ def slab_contribution(slab: Slab, lam, gamma, num_destinations: int,
 
 
 def dual_value_and_grad(lp: LPData, lam, gamma, proj_kind: str = "boxcut",
-                        proj_iters: int = 40):
+                        proj_iters: int = 40, ax_reducer=None):
     """g(λ), ∇g(λ), and diagnostics (functional scatter-mode entry point).
-    The reference's `ax_reducer` distribution hook comes with distribution
-    (ROADMAP queue A item 12)."""
+
+    `ax_reducer` is the distribution hook: it sums the locally computed
+    (Ax, cᵀx, ‖x‖²) over the ranks that hold the other source rows (one
+    all-reduce, `core.distributed`) before b is subtracted, once.  None
+    means one shard."""
     J = lp.num_destinations
     ax = torch.zeros((lp.m, J), dtype=lam.dtype, device=lam.device)
     c_x = torch.zeros((), dtype=lam.dtype, device=lam.device)
@@ -218,6 +221,8 @@ def dual_value_and_grad(lp: LPData, lam, gamma, proj_kind: str = "boxcut",
         ax_s, c_s, sq_s = slab_contribution(slab, lam, gamma, J, proj_kind,
                                             proj_iters)
         ax, c_x, x_sq = ax + ax_s, c_x + c_s, x_sq + sq_s
+    if ax_reducer is not None:
+        ax, c_x, x_sq = ax_reducer((ax, c_x, x_sq))
     grad = ax - lp.b
     g = c_x + 0.5 * gamma * x_sq + torch.sum(lam * grad)
     infeas = torch.linalg.vector_norm(torch.clamp_min(grad, 0.0))
@@ -252,14 +257,20 @@ class MatchingObjective:
     into a slice of one flat buffer in slab-concatenation order, allocated
     once here.  Each slice starts on a 16-byte boundary, and the plan's
     edge indices are mapped to that layout where it leaves gaps.
+
+    `ax_reducer`, when given, sums the sweep's local (Ax, cᵀx, ‖x‖²) — and
+    Σx in `GlobalCountObjective` — over the ranks that hold the other
+    source rows, before b is subtracted (`core.distributed`).
     """
 
     def __init__(self, lp: LPData, projection_map=None,
                  proj_kind: str = "boxcut", proj_iters: int = 40,
-                 ax_mode: str = "aligned", ax_plan: Optional[AxPlan] = None):
+                 ax_mode: str = "aligned", ax_plan: Optional[AxPlan] = None,
+                 ax_reducer=None):
         if ax_mode not in AX_MODES:
             raise ValueError(f"ax_mode must be one of {AX_MODES}, got {ax_mode!r}")
         self.lp = lp
+        self.ax_reducer = ax_reducer
         # each slab's (kind, iters): a ProjectionMap's default and its
         # per-bucket overrides (block id == slab index), or one kind for all
         pmap = (projection_map if projection_map is not None
@@ -397,6 +408,8 @@ class MatchingObjective:
 
     def calculate(self, lam, gamma):
         ax, c_x, x_sq, _ = self._forward(lam, gamma)
+        if self.ax_reducer is not None:
+            ax, c_x, x_sq = self.ax_reducer((ax, c_x, x_sq))
         grad = ax - self.lp.b
         g = c_x + 0.5 * gamma * x_sq + torch.sum(lam * grad)
         infeas = torch.linalg.vector_norm(torch.clamp_min(grad, 0.0))
@@ -472,6 +485,8 @@ class GlobalCountObjective(MatchingObjective):
         mu = lam_flat[-1]
         ax, c_x, x_sq, x_sum = self._forward(lam, gamma, shift=shift,
                                              with_xsum=True)
+        if self.ax_reducer is not None:
+            ax, c_x, x_sq, x_sum = self.ax_reducer((ax, c_x, x_sq, x_sum))
         grad_main = ax - self.lp.b
         grad_cnt = self.row_scale * (x_sum - self.count)
         g = (c_x + 0.5 * gamma * x_sq + torch.sum(lam * grad_main)

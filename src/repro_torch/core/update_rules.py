@@ -13,6 +13,12 @@ chunk of steps runs with no host round-trip.  No step updates a state
 tensor in place: a new state shares tensors with the old one
 (`lam_prev=state.lam`), and the health guard's snapshot relies on that.
 
+Every reduction of a step over the whole dual vector (norms, inner
+products, the mean step) goes through a `DualReduce`: on one device the
+plain torch reductions (`LOCAL`); when λ is sharded over ranks,
+`distributed.ShardedDualReduce` sums the shards' partials, so that every
+rank takes the same step.
+
 Registered rules: `agd` (the paper's accelerated ascent, the default),
 `pga` (plain projected ascent), `pdhg` (restarted PDHG on the dual
 oracle: per-row steps, window averages, KKT restart) and `bb`
@@ -53,11 +59,30 @@ def max_step_at(config: SolveConfig, gamma: torch.Tensor) -> torch.Tensor:
     return config.max_step * gamma / config.gamma
 
 
+class DualReduce:
+    """The reductions a step takes over the whole dual vector, on a dual
+    that lives whole on this device."""
+
+    def norm(self, a: torch.Tensor) -> torch.Tensor:
+        return torch.linalg.vector_norm(a)
+
+    def dot(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """⟨a, b⟩ over every element (λ is (m, J) or (m·J + 1,))."""
+        return torch.sum(a * b)
+
+    def mean(self, a: torch.Tensor) -> torch.Tensor:
+        return torch.mean(a)
+
+
+LOCAL = DualReduce()
+
+
 def _lipschitz_update(state: SolveState, grad: torch.Tensor,
+                      reduce: DualReduce = LOCAL,
                       decay: float = 0.97) -> torch.Tensor:
     """Running local-Lipschitz estimate L̂ ← max(decay·L̂, ‖Δ∇g‖/‖Δy‖)."""
-    dy = torch.linalg.vector_norm(state.y - state.y_prev)
-    dg = torch.linalg.vector_norm(grad - state.grad_prev)
+    dy = reduce.norm(state.y - state.y_prev)
+    dg = reduce.norm(grad - state.grad_prev)
     obs = torch.where(dy > 0, dg / torch.clamp_min(dy, 1e-30),
                       torch.zeros_like(dg))
     return torch.maximum(state.l_est * decay, obs)
@@ -78,10 +103,10 @@ def initial_state(lam0: torch.Tensor, config: SolveConfig,
                       extra=extra)
 
 
-def _iter_stats(g, aux, grad, step, gamma) -> IterStats:
+def _iter_stats(g, aux, grad, step, gamma,
+                reduce: DualReduce = LOCAL) -> IterStats:
     return IterStats(dual_obj=g, primal_obj=aux.primal_obj, infeas=aux.infeas,
-                     grad_norm=torch.linalg.vector_norm(grad), step=step,
-                     gamma=gamma)
+                     grad_norm=reduce.norm(grad), step=step, gamma=gamma)
 
 
 class UpdateRule:
@@ -100,7 +125,8 @@ class UpdateRule:
         return (state.lam, state.y)
 
     def step(self, calculate: Callable, config: SolveConfig,
-             gamma_fn: Callable, state: SolveState):
+             gamma_fn: Callable, state: SolveState,
+             reduce: DualReduce = LOCAL):
         raise NotImplementedError
 
     def apply_backoff(self, state: SolveState, config: SolveConfig,
@@ -174,26 +200,21 @@ def _ascent_step(config: SolveConfig, l_est: torch.Tensor,
                                      cap))
 
 
-def _vdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """⟨a, b⟩ over every element (λ is (m, J) or (m·J + 1,))."""
-    return torch.sum(a * b)
-
-
 def agd_step(calculate: Callable, config: SolveConfig, gamma_fn: Callable,
-             state: SolveState):
+             state: SolveState, reduce: DualReduce = LOCAL):
     """One Nesterov-accelerated projected dual-ascent step with the secant
     Lipschitz step and O'Donoghue–Candès adaptive restart."""
     gamma = gamma_fn(state)
     cap = max_step_at(config, gamma)
     g, grad, aux = calculate(state.y, gamma)
 
-    l_est = _lipschitz_update(state, grad)
+    l_est = _lipschitz_update(state, grad, reduce)
     step = _ascent_step(config, l_est, cap, state.it)
 
     lam_new = torch.clamp_min(state.y + step * grad, 0.0)
 
     # restart iff ⟨∇g(y), λ_{k+1} − λ_k⟩ < 0 (the gradient opposes travel)
-    restart = _vdot(grad, lam_new - state.lam) < 0.0
+    restart = reduce.dot(grad, lam_new - state.lam) < 0.0
     k_mom = torch.where(restart, torch.zeros_like(state.k_mom),
                         state.k_mom + 1)
     k = k_mom.to(torch.float32)
@@ -204,39 +225,39 @@ def agd_step(calculate: Callable, config: SolveConfig, gamma_fn: Callable,
         lam=lam_new, y=y_new, lam_prev=state.lam, grad_prev=grad,
         y_prev=state.y, step=step, l_est=l_est, k_mom=k_mom,
         it=state.it + 1)
-    return new_state, _iter_stats(g, aux, grad, step, gamma)
+    return new_state, _iter_stats(g, aux, grad, step, gamma, reduce)
 
 
 def pga_step(calculate: Callable, config: SolveConfig, gamma_fn: Callable,
-             state: SolveState):
+             state: SolveState, reduce: DualReduce = LOCAL):
     """Plain projected gradient ascent (no momentum), the ablation
     baseline."""
     gamma = gamma_fn(state)
     cap = max_step_at(config, gamma)
     g, grad, aux = calculate(state.y, gamma)
-    l_est = _lipschitz_update(state, grad)
+    l_est = _lipschitz_update(state, grad, reduce)
     step = _ascent_step(config, l_est, cap, state.it)
     lam_new = torch.clamp_min(state.y + step * grad, 0.0)
     new_state = SolveState(lam=lam_new, y=lam_new, lam_prev=state.lam,
                            grad_prev=grad, y_prev=state.y, step=step,
                            l_est=l_est, k_mom=state.k_mom, it=state.it + 1)
-    return new_state, _iter_stats(g, aux, grad, step, gamma)
+    return new_state, _iter_stats(g, aux, grad, step, gamma, reduce)
 
 
 @register_rule
 class AGDRule(UpdateRule):
     name = "agd"
 
-    def step(self, calculate, config, gamma_fn, state):
-        return agd_step(calculate, config, gamma_fn, state)
+    def step(self, calculate, config, gamma_fn, state, reduce=LOCAL):
+        return agd_step(calculate, config, gamma_fn, state, reduce)
 
 
 @register_rule
 class PGARule(UpdateRule):
     name = "pga"
 
-    def step(self, calculate, config, gamma_fn, state):
-        return pga_step(calculate, config, gamma_fn, state)
+    def step(self, calculate, config, gamma_fn, state, reduce=LOCAL):
+        return pga_step(calculate, config, gamma_fn, state, reduce)
 
 
 class PDHGExtra(NamedTuple):
@@ -254,16 +275,17 @@ class PDHGExtra(NamedTuple):
     gamma_prev: torch.Tensor  # γ of the previous iteration
 
 
-def _kkt_score(lam_avg: torch.Tensor, grad_avg: torch.Tensor) -> torch.Tensor:
+def _kkt_score(lam_avg: torch.Tensor, grad_avg: torch.Tensor,
+               reduce: DualReduce = LOCAL) -> torch.Tensor:
     """Projected-gradient norm of the dual at λ̄ with ḡ = A x̄ − b: zero
     exactly at a saddle point; the adaptive restart fires on its decay."""
     pg = torch.where((lam_avg > 0.0) | (grad_avg > 0.0), grad_avg,
                      torch.zeros_like(grad_avg))
-    return torch.linalg.vector_norm(pg)
+    return reduce.norm(pg)
 
 
 def pdhg_step(calculate: Callable, config: SolveConfig, gamma_fn: Callable,
-              state: SolveState):
+              state: SolveState, reduce: DualReduce = LOCAL):
     """One restarted-PDHG iteration on the dual oracle (the reference's
     `pdhg_step`).  Exact primal minimization collapses PDHG's primal
     half-step, so: the oracle is evaluated at the extrapolated
@@ -300,7 +322,7 @@ def pdhg_step(calculate: Callable, config: SolveConfig, gamma_fn: Callable,
                       torch.zeros_like(d_g))
     l_diag = torch.maximum(config.pdhg_l_decay * l_diag0, obs)
 
-    l_est = _lipschitz_update(state, grad)
+    l_est = _lipschitz_update(state, grad, reduce)
     l_glob = torch.where(l_est > 0, l_est, 1.0 / cap)
     l_eff = torch.where(l_diag > 0, l_diag, l_glob)
     smax = config.pdhg_step_max_scale * cap * ex.omega
@@ -310,7 +332,7 @@ def pdhg_step(calculate: Callable, config: SolveConfig, gamma_fn: Callable,
 
     lam_new = torch.clamp_min(state.y + steps * grad, 0.0)
 
-    mom_restart = _vdot(grad, lam_new - state.lam) < 0.0
+    mom_restart = reduce.dot(grad, lam_new - state.lam) < 0.0
     k_mom = torch.where(mom_restart, torch.zeros_like(state.k_mom),
                         state.k_mom + 1)
 
@@ -320,8 +342,8 @@ def pdhg_step(calculate: Callable, config: SolveConfig, gamma_fn: Callable,
     wf = window.to(torch.float32)
     lam_avg = lam_sum / wf
     grad_avg = grad_sum / wf
-    score_avg = _kkt_score(lam_avg, grad_avg)
-    score_cur = _kkt_score(lam_new, grad)
+    score_avg = _kkt_score(lam_avg, grad_avg, reduce)
+    score_cur = _kkt_score(lam_new, grad, reduce)
 
     # adaptive restart: jump to the average when its score has decayed
     # enough AND beats the current iterate; the fixed-frequency cap only
@@ -350,12 +372,12 @@ def pdhg_step(calculate: Callable, config: SolveConfig, gamma_fn: Callable,
         omega=ex.omega,
         gamma_prev=gamma)
 
-    mean_step = torch.mean(steps)
+    mean_step = reduce.mean(steps)
     new_state = SolveState(
         lam=lam_next, y=y_new, lam_prev=state.lam, grad_prev=grad,
         y_prev=state.y, step=mean_step, l_est=l_est, k_mom=k_mom,
         it=state.it + 1, extra=new_extra)
-    return new_state, _iter_stats(g, aux, grad, mean_step, gamma)
+    return new_state, _iter_stats(g, aux, grad, mean_step, gamma, reduce)
 
 
 @register_rule
@@ -375,8 +397,8 @@ class PDHGRule(UpdateRule):
             gamma_prev=_f32(-1.0, dev))
         return initial_state(lam0, config, extra)
 
-    def step(self, calculate, config, gamma_fn, state):
-        return pdhg_step(calculate, config, gamma_fn, state)
+    def step(self, calculate, config, gamma_fn, state, reduce=LOCAL):
+        return pdhg_step(calculate, config, gamma_fn, state, reduce)
 
     def apply_backoff(self, state, config, gamma_now, scale):
         """Also shrink ω, which every diagonal step carries, and drop the
@@ -396,7 +418,7 @@ class PDHGRule(UpdateRule):
 
 
 def bb_step(calculate: Callable, config: SolveConfig, gamma_fn: Callable,
-            state: SolveState):
+            state: SolveState, reduce: DualReduce = LOCAL):
     """Spectral projected dual ascent (the reference's `bb_step`): the
     smaller of the BB1 step ‖Δλ‖²/⟨Δλ, −Δ∇g⟩ and the BB2 step
     ⟨Δλ, −Δ∇g⟩/‖Δ∇g‖², trust-capped at `bb_step_max_scale`·cap, and the
@@ -409,11 +431,11 @@ def bb_step(calculate: Callable, config: SolveConfig, gamma_fn: Callable,
 
     s = state.lam - state.lam_prev
     dg = grad - state.grad_prev
-    sy = -_vdot(s, dg)                       # curvature along s (> 0 ok)
-    ss = _vdot(s, s)
-    yy = _vdot(dg, dg)
+    sy = -reduce.dot(s, dg)                  # curvature along s (> 0 ok)
+    ss = reduce.dot(s, s)
+    yy = reduce.dot(dg, dg)
 
-    l_est = _lipschitz_update(state, grad)
+    l_est = _lipschitz_update(state, grad, reduce)
     fallback = torch.minimum(torch.where(l_est > 0, 1.0 / l_est, cap), cap)
     bb1 = ss / torch.clamp_min(sy, 1e-30)
     bb2 = sy / torch.clamp_min(yy, 1e-30)
@@ -430,15 +452,15 @@ def bb_step(calculate: Callable, config: SolveConfig, gamma_fn: Callable,
         y_prev=state.lam, step=step, l_est=l_est,
         k_mom=torch.zeros_like(state.k_mom), it=state.it + 1,
         extra=state.extra)
-    return new_state, _iter_stats(g, aux, grad, step, gamma)
+    return new_state, _iter_stats(g, aux, grad, step, gamma, reduce)
 
 
 @register_rule
 class BBRule(UpdateRule):
     name = "bb"
 
-    def step(self, calculate, config, gamma_fn, state):
-        return bb_step(calculate, config, gamma_fn, state)
+    def step(self, calculate, config, gamma_fn, state, reduce=LOCAL):
+        return bb_step(calculate, config, gamma_fn, state, reduce)
 
     def apply_backoff(self, state, config, gamma_now, scale):
         """Collapse the secant pair (λ_prev = λ, so Δλ = 0 and the

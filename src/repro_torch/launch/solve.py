@@ -1,18 +1,29 @@
 """LP solve launcher of the port:
 `python -m repro_torch.launch.solve [--sources N ...]`.
 
-Counterpart of `python -m repro.launch.solve` on one device: generate the
-instance, validate it, and build the `--formulation`'s objective: for
-`matching` (the default) row-normalize the LP (§5.1) and take
-`MatchingObjective`; for any other registered formulation compile it from
-the un-preconditioned LP with the row normalization folded in, as the
-reference CLI does.  Then run the `--algorithm` update rule (agd, pga,
-pdhg, bb) through the chunked engine with the `--ax-mode` Ax reduction
-(default: the x-carry aligned path), and with `--certify` extract a
-repaired primal witness and print the duality-gap certificate over the
-formulation's constraint families.  `--json` prints one result object with the
-reference's keys (logs move to stderr).  Runs on the card by default and
-raises when there is none; `--device cpu` runs the plain versions.
+Counterpart of `python -m repro.launch.solve`: generate the instance,
+validate it, and build the `--formulation`'s objective: for `matching`
+(the default) row-normalize the whole LP (§5.1) and solve it distributed
+over every rank (`core.distributed.solve_distributed`: each rank its row
+block of the slabs, one all-reduce a step; `--lambda-sharded` splits λ
+over the grid's "model" axis), as the reference CLI does; for any other
+registered formulation compile it from the un-preconditioned LP with the
+row normalization folded in, and solve it on this rank's device.  Then
+run the `--algorithm` update rule (agd, pga, pdhg, bb) through the
+chunked engine with the `--ax-mode` Ax reduction (default: the x-carry
+aligned path), and with `--certify` extract a repaired primal witness and
+print the duality-gap certificate over the formulation's constraint
+families, over the whole preconditioned LP.  `--json` prints one result
+object with the reference's keys (logs move to stderr).  Runs on the card
+by default and raises when there is none; `--device cpu` runs the plain
+versions.
+
+Ranks: started plainly it is one rank with no process group; under
+`python -m torch.distributed.run --nproc-per-node N -m
+repro_torch.launch.solve ...` it runs N ranks (NCCL, one card a rank, or
+gloo with `--device cpu`) on a (N, 1) grid of axes ("data", "model").
+Rank 0 alone logs, prints the result and the certificate, and writes
+every file (duals, checkpoints).
 
 Repeated solves: `--save-duals` writes λ with the γ it reached and the
 instance's fingerprint; `--warm-start` starts from such a dump and skips
@@ -21,13 +32,16 @@ Fault tolerance (DESIGN.md §9): `--health-guard` (with `--max-retries`)
 rolls a bad chunk back; `--checkpoint-dir` saves the solver state every
 `--checkpoint-every` iterations and on SIGTERM/SIGINT, and `--resume`
 continues from the latest checkpoint, refusing one written for another
-instance or another rule.
+instance or another rule.  Under ranks the files hold the whole λ and
+state, whatever the number of ranks that wrote them: every rank reads
+them and keeps its own part.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
 import dataclasses
+import gc
 import hashlib
 import json
 import signal
@@ -38,14 +52,16 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..checkpoint import CheckpointManager
-from ..convert import lp_to_torch, resolve_device
-from ..core import (HealthConfig, InstanceSpec, LPValidationError,
-                    MatchingObjective, Maximizer, SolveConfig, StopReason,
-                    StoppingCriteria, generate, get_rule, precondition,
-                    rule_names, validate_lp)
+from ..convert import lp_to_torch
+from ..core import (DistributedMatchingObjective, HealthConfig, InstanceSpec,
+                    LPValidationError, MatchingObjective, Maximizer,
+                    SolveConfig, StopReason, StoppingCriteria, generate,
+                    get_rule, precondition, rule_names, validate_lp)
 from .. import formulations
+from .mesh import init_ranks, make_grid
 
 
 def instance_fingerprint(lp) -> str:
@@ -204,8 +220,14 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--json", action="store_true",
                     help="print one machine-readable result object to "
                          "stdout (all logs move to stderr)")
+    ap.add_argument("--lambda-sharded", action="store_true",
+                    help="split lambda's destinations over the grid's "
+                         "'model' axis (all-gather it before the sweep, "
+                         "reduce-scatter Ax after); --formulation matching "
+                         "only")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
-                    help="where the solve runs (default: the card)")
+                    help="where the solve runs (default: the card; under "
+                         "torch.distributed.run, cuda:LOCAL_RANK)")
     return ap
 
 
@@ -214,13 +236,15 @@ class Outcome(NamedTuple):
     same process, the objects behind it."""
 
     result: dict
-    objective: MatchingObjective
-    lam: torch.Tensor
+    objective: object        # one rank: its MatchingObjective (the whole
+                             # LP); several: the DistributedMatchingObjective
+    lam: torch.Tensor        # the whole λ
     gamma: float
     generate_seconds: float  # host generation and validation
-    setup_seconds: float     # transfer, preconditioning, plan packing
+    setup_seconds: float     # preconditioning, placement, plan packing
     solve_seconds: float     # the solve loop alone, synchronised
     certify_seconds: float   # extraction and certificate (0 without)
+    rank: int = 0
 
 
 class Instance(NamedTuple):
@@ -274,10 +298,11 @@ class _Checkpoints:
     and the engine's checkpoint and preempt hooks (SIGTERM/SIGINT stop the
     loop at the next chunk boundary; the engine's final call saves)."""
 
-    def __init__(self, args, fingerprint: str, device, log):
+    def __init__(self, args, fingerprint: str, device, log, writes: bool):
         self.args = args
         self.fingerprint = fingerprint
         self.log = log
+        self.writes = writes     # rank 0 alone writes; every rank reads
         self.mgr = CheckpointManager(args.checkpoint_dir, keep_last=3)
         self.state = None
         self.meta = None
@@ -321,11 +346,15 @@ class _Checkpoints:
     def save(self, it, state, meta):
         """The engine's checkpoint_fn: every healthy chunk boundary and a
         final call at exit; saves at most every --checkpoint-every
-        iterations, and always at the final call."""
+        iterations, and always at the final call.  `state` is whole; every
+        rank keeps the same count, rank 0 alone writes."""
         if it == self.last_saved:
             return
         if (not meta.get("final") and self.last_saved is not None
                 and it - self.last_saved < self.args.checkpoint_every):
+            return
+        self.last_saved = it
+        if not self.writes:
             return
         self.mgr.save(it, state, extra={
             "it": int(it), "gamma_now": float(meta["gamma_now"]),
@@ -333,7 +362,6 @@ class _Checkpoints:
                        else float(meta["g_prev"])),
             "algorithm": meta.get("algorithm", self.args.algorithm),
             "fingerprint": self.fingerprint})
-        self.last_saved = it
         self.log(f"checkpoint saved: step {it} -> {self.args.checkpoint_dir}")
 
     def preempted(self) -> bool:
@@ -354,13 +382,21 @@ class _Checkpoints:
             signal.signal(sig, handler)
 
 
+def _quiet(msg):
+    """The log of a rank other than 0."""
+
+
 def run(args, log=print, instance: Optional[Instance] = None) -> Outcome:
-    """One solve as the flags describe.  `instance`, when given, is the
-    flags' instance generated once by `generate_instance`, so that several
-    runs in one process pay the host generation once."""
+    """One solve as the flags describe, on this process's rank
+    (`mesh.init_ranks`).  `instance`, when given, is the flags' instance
+    generated once by `generate_instance`, so that several runs in one
+    process pay the host generation once."""
     if args.resume and not args.checkpoint_dir:
         raise SystemExit("--resume requires --checkpoint-dir")
-    device = resolve_device(args.device)
+    ranks = init_ranks(args.device)
+    device, lead = ranks.device, ranks.rank == 0
+    if not lead:
+        log = _quiet
     if instance is None:
         instance = generate_instance(args, log)
     lp_np, generate_seconds = instance
@@ -375,31 +411,44 @@ def run(args, log=print, instance: Optional[Instance] = None) -> Outcome:
     fingerprint = instance_fingerprint(lp_np)
     health = (HealthConfig(max_retries=args.max_retries)
               if args.health_guard else None)
-    ckpt = (_Checkpoints(args, fingerprint, device, log)
+    ckpt = (_Checkpoints(args, fingerprint, device, log, writes=lead)
             if args.checkpoint_dir else None)
     t0 = time.perf_counter()
-    form = (None if args.formulation == "matching"
-            else formulations.build(args.formulation, lp_np))
-    lp = lp_to_torch(lp_np, device)
-    del lp_np, instance
-    if form is None:
+    if args.formulation == "matching":
+        # the whole LP on the host, preconditioned on every rank before
+        # each keeps its row block, as the reference does
+        lp = lp_to_torch(lp_np, "cpu")
         if not args.no_precondition:
             lp, _ = precondition(lp, row_norm=True)
-        # the reference CLI's matching path has no "sorted" mode (its
-        # permutation would cross shard boundaries) and runs scatter for it
+        # the distributed objective has no "sorted" mode (its permutation
+        # would cross shard boundaries), and the reference CLI runs scatter
         ax_mode = "scatter" if args.ax_mode == "sorted" else args.ax_mode
-        obj = MatchingObjective(lp, ax_mode=ax_mode)
+        grid = make_grid((ranks.world, 1), ("data", "model"))
+        # solve_distributed in its two steps: the objective is kept for the
+        # certificate, and set-up and solve loop are timed apart
+        obj = DistributedMatchingObjective(
+            lp, grid, proj_kind=cfg.projection,
+            lambda_axis="model" if args.lambda_sharded else None,
+            ax_mode=ax_mode, device=device)
+        dual_shape = (lp.m, lp.num_destinations)
+        log(f"ranks: {ranks.world} on a ({ranks.world}, 1) grid (data, "
+            f"model){', lambda sharded on model' if args.lambda_sharded else ''}"
+            f"; rank 0 holds {sum(s.n for s in obj.lp.slabs)} source rows")
     else:
         ax_mode = args.ax_mode
+        form = formulations.build(args.formulation, lp_np)
         obj = formulations.compile_formulation(
-            form, lp, ax_mode=ax_mode, row_norm=not args.no_precondition)
+            form, lp_to_torch(lp_np, device), ax_mode=ax_mode,
+            row_norm=not args.no_precondition)
+        dual_shape = obj.dual_shape
         slices = {k: f"{v.start}:{v.stop}"
                   for k, v in obj.row_slices().items()}
         log(f"formulation '{args.formulation}': {obj.dual_shape[0]} dual "
             f"rows ({slices})")
+    del lp_np, instance
     lam0 = None
     if args.warm_start and (ckpt is None or ckpt.state is None):
-        lam_np, meta = load_duals(args.warm_start, obj.dual_shape,
+        lam_np, meta = load_duals(args.warm_start, dual_shape,
                                   with_meta=True)
         lam0 = torch.as_tensor(lam_np, dtype=torch.float32, device=device)
         cfg, skipped, why = apply_warm_start_policy(cfg, meta, fingerprint)
@@ -417,9 +466,14 @@ def run(args, log=print, instance: Optional[Instance] = None) -> Outcome:
         hooks = dict(checkpoint_fn=ckpt.save, preempt_fn=ckpt.preempted,
                      initial_state=ckpt.state, resume_meta=ckpt.meta)
     with ckpt if ckpt is not None else contextlib.nullcontext():
-        res = Maximizer(cfg, algorithm=args.algorithm).maximize(
-            obj, initial_value=lam0, criteria=criteria,
-            diagnostics_fn=on_check, health=health, **hooks)
+        if isinstance(obj, DistributedMatchingObjective):
+            res = obj.solve(cfg, args.algorithm, lam0=lam0,
+                            criteria=criteria, diagnostics_fn=on_check,
+                            health=health, **hooks)
+        else:
+            res = Maximizer(cfg, algorithm=args.algorithm).maximize(
+                obj, initial_value=lam0, criteria=criteria,
+                diagnostics_fn=on_check, health=health, **hooks)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     t_end = time.perf_counter()
@@ -461,37 +515,62 @@ def run(args, log=print, instance: Optional[Instance] = None) -> Outcome:
         result.update(dual_obj_first=float(d[0]), dual_obj_final=float(d[-1]),
                       infeas_final=float(res.stats.infeas[-1]))
     if args.save_duals:
-        save_duals(args.save_duals, res.lam, gamma=gamma_last,
-                   fingerprint=fingerprint)
+        if lead:
+            save_duals(args.save_duals, res.lam, gamma=gamma_last,
+                       fingerprint=fingerprint)
         log(f"saved duals -> {args.save_duals} (gamma={gamma_last:.4g}, "
             f"fingerprinted)")
         result["saved_duals"] = args.save_duals
+    if isinstance(obj, DistributedMatchingObjective):
+        # one rank holds the whole LP: its own objective serves the
+        # certificate and the caller; several: rank 0 builds one below
+        obj = obj.local if ranks.world == 1 else obj
     t_cert = time.perf_counter()
     if args.certify and res.stop_reason == StopReason.PREEMPTED:
         log("skipping certification: solve was preempted mid-trajectory "
             "(resume it to completion first)")
-    elif args.certify:
+    elif args.certify and lead:
         from ..primal import certify, format_certificate
-        cert = certify(obj, res.lam, np.float32(gamma_last),
+        serve = obj
+        if isinstance(obj, DistributedMatchingObjective):
+            # over the whole preconditioned LP, as the reference does
+            serve = MatchingObjective(lp_to_torch(lp, device),
+                                      ax_mode=args.ax_mode)
+        cert = certify(serve, res.lam, np.float32(gamma_last),
                        chunk_rows=args.chunk_rows)
         log(format_certificate(cert))
         result["certificate_valid"] = bool(cert.valid)
     return Outcome(result=result, objective=obj, lam=res.lam,
                    gamma=gamma_last, generate_seconds=generate_seconds,
                    setup_seconds=t_solve - t0, solve_seconds=t_end - t_solve,
-                   certify_seconds=time.perf_counter() - t_cert)
+                   certify_seconds=time.perf_counter() - t_cert,
+                   rank=ranks.rank)
 
 
 def main(argv: Optional[list] = None) -> dict:
-    args = build_parser().parse_args(argv)
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    if args.lambda_sharded and args.formulation != "matching":
+        ap.error("--lambda-sharded is only supported with --formulation "
+                 "matching (composed formulations solve on a single "
+                 "replicated λ)")
     out = sys.stderr if args.json else sys.stdout
 
     def log(msg):
         print(msg, file=out, flush=True)
 
-    result = run(args, log).result
-    if args.json:
-        print(json.dumps(result, sort_keys=True), flush=True)
+    try:
+        outcome = run(args, log)
+        if args.json and outcome.rank == 0:
+            print(json.dumps(outcome.result, sort_keys=True), flush=True)
+        result = outcome.result
+    finally:
+        outcome = None
+        if dist.is_initialized():
+            # the objective's subgroups go first: one left to the exit's
+            # teardown, after the default group, can abort the process
+            gc.collect()
+            dist.destroy_process_group()
     return result
 
 

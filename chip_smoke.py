@@ -121,6 +121,31 @@ nothing of JAX or of the JAX package.  Phases, each failing loudly:
               held the same.  Each rank has a hard timeout.  (c) with
               more than one card, (b) over NCCL on every card; with one,
               a line saying it was not run
+ 11. serve    run after phase 9 and before phase 10, which frees phase 3's
+              objective: the allocation server (repro_torch.primal) on it
+              and its final lambda.  (a) the snapshot build's time and
+              warmup (K1 launched once a shape); (b) >= 10,000 random
+              sources over every slab served bit for bit equal to
+              obj.primal, and every source of phase 6's wide cell (its
+              2,048-wide slab); K1 on 8-, 64- and 256-row sub-slabs
+              against its plain version (atol 1e-4), timed (CUDA events;
+              device time profiled) beside each microbatch's bound; (c)
+              500 queries each of 1, 8, 64 and 256 sources on one thread:
+              p50, p95, sources/s, K1 launches a query; (d) the whole
+              instance through write_shards, read back bit for bit equal
+              to extract_primal (seconds, sources/s, bytes), and the
+              CLI's --export-primal at parity size; (e) warm_resolve onto
+              b x 0.99 with a certificate required, queries after the
+              swap bit for bit the new objective's primal, an
+              ExplodingObjective refused (degraded, lambda unchanged) and
+              cleared by a forced success; one thread's queries idle and
+              beside a fixed re-solve on the two streams and on one;
+              (f) a ServerFrontend drill: client threads at twice the
+              one-thread capacity for 10 s, a refresh mid-run, one
+              /metrics scrape over loopback, then drain: every ticket
+              classified, 0 ERROR, no OK past its deadline.  K1's and
+              K2's launches of (a)-(e), each run counted alone, go into
+              the kernels line (launches_serving)
 
 The last three lines of standard output are the card's name and power
 limit, the kernels' JSON record, and {"ok": true, "device": {...}}.  Exits
@@ -1246,7 +1271,8 @@ def wide_rows():
     2,048 throughput slab, timed against their bounds; and bit for bit
     against their block-order plain versions at widths 2,048, 8,192,
     16,384 and 32,768 (chunks in registers, shared memory, global
-    scratch).  Returns {kernel name: {slab: times}}."""
+    scratch).  Returns ({kernel name: {slab: times}}, the converged
+    outcome, which phase 11 serves)."""
     import torch
     from repro_torch.launch import solve
     inst, out, launches = wide_instance(["--iterations", "50"],
@@ -1279,7 +1305,7 @@ def wide_rows():
         f"{res['certificate_valid']}; solve loop {out.solve_seconds:.2f} s")
     require(res["stop_reason"] == "converged", "wide solve did not converge")
     require(res["certificate_valid"] is True, "wide certificate not valid")
-    del out, inst
+    del inst
 
     for w in WIDE_BITS:
         n = min(600, 10_000_000 // w)
@@ -1293,7 +1319,7 @@ def wide_rows():
     del slab
     for name, r in wide_store_times().items():
         recs[name]["by_storage"] = r
-    return recs
+    return recs, out
 
 
 def wide_store_times():
@@ -2206,6 +2232,572 @@ def distributed_one_rank(inst, main, gvals):
         dist.destroy_process_group()
 
 
+# phase 11: the allocation server and its frontend on phase 3's objective:
+# the query sizes driven one thread at a time (queries of each), the
+# random sources held bit for bit, the microbatch rows K1 is timed at, the
+# drill's client threads, request size (sources; two fill one 64-source
+# batch, and the clients' own interpreter time stays a small share of
+# the load), deadline, length in seconds and its load, in sources,
+# against the capacity measured one thread at a time
+SERVE_SIZES = (1, 8, 64, 256)
+SERVE_QUERIES = 500
+SERVE_BITS = 10_000
+MICROBATCH_ROWS = (8, 64, 256)
+DRILL_THREADS = 8
+DRILL_REQUEST = 32
+DRILL_DEADLINE = 0.25
+DRILL_SECONDS = 10.0
+DRILL_LOAD = 2.0
+RESOLVE_FIXED = 500   # iterations of the re-solve queries run beside
+
+
+class ServeCounts:
+    """K1's and K2's launches over phase 11's serving runs: each run has
+    its counters set to 0 just before and read just after, and is added
+    up here; the launches that compare a kernel with its plain version or
+    time it are never counted."""
+
+    def __init__(self):
+        self.by_step = {}
+
+    def run(self, step, fn, *args, **kw):
+        import torch
+        reset_counters()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        got = read_counters()
+        for k, v in got.items():
+            self.by_step.setdefault(step, {}).setdefault(k, 0)
+            self.by_step[step][k] += v
+        return out
+
+    def total(self, name):
+        return sum(n.get(name, 0) for n in self.by_step.values())
+
+
+def served_bits(what, srv, obj, ids, counts, step):
+    """Serve `ids` in queries of 256 and hold every row to the same row
+    of `obj.primal(lambda)` bit for bit.  Returns the rows checked."""
+    import numpy as np
+    import torch
+    g = torch.full((), float(srv.gamma), device=srv.lam.device)
+    full = obj.primal(srv.lam, g)
+    got = {}
+    for lo in range(0, len(ids), 256):
+        got.update(counts.run(step, srv.query, ids[lo:lo + 256]))
+    require(set(got) == set(int(i) for i in ids), f"{what}: ids missing")
+    by_slab = {}
+    for d in got.values():
+        by_slab.setdefault(d.slab_index, []).append(d)
+    for si, ds in by_slab.items():
+        rows = torch.tensor([d.row for d in ds], device=srv.lam.device)
+        want = full[si].index_select(0, rows).float().cpu().numpy()
+        served = np.stack([d.x for d in ds])
+        require(np.array_equal(served, want),
+                f"{what}: served rows of slab {si} differ from primal")
+    widths = sorted({obj.lp.slabs[si].width for si in by_slab})
+    log(f"serve bits, {what}: {len(got)} served rows over {len(by_slab)} "
+        f"slabs (widths {widths}) equal obj.primal(lambda) bit for bit")
+    del full
+    return len(got)
+
+
+def microbatch_records(obj, lam, gamma):
+    """K1 on 256-row sub-slabs gathered as a query gathers them, against
+    its plain version (max |dx|, atol 1e-4), and its time on 8-, 64- and
+    256-row microbatches of each slab (CUDA events around the wrapper, and
+    the kernel's device time, profiled) beside the byte and issue bound of
+    that microbatch.  None of these launches is counted."""
+    import numpy as np
+    import torch
+    from repro_torch.core.types import Slab
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.dual_grad import dual_x_slab
+    g = torch.full((), gamma, device=lam.device)
+    iters = obj.proj_iters
+    m, J = lam.shape
+    rng = np.random.default_rng(11)
+    err, out = 0.0, {}
+    for si, slab in enumerate(obj.lp.slabs):
+        for n in MICROBATCH_ROWS:
+            rows = torch.from_numpy(np.sort(rng.choice(
+                slab.n, size=min(n, slab.n), replace=False))).to(lam.device)
+            sub = Slab(*(t.index_select(0, rows) for t in slab))
+            x, _, _ = dual_x_slab(*sub[:6], lam, g, iters=iters)
+            if n == max(MICROBATCH_ROWS):
+                xr, _, _ = ref.dual_x_ref(*sub[:6], lam, g, iters)
+                err = max(err, float((x - xr).abs().max()))
+            nbytes, real, padded, _, _, ec, _ = _slab_bytes([sub], m, J)
+            nbytes += padded * ec
+            steps = bisection_steps([sub], lam, g, iters)
+            b_ms, b_by, bytes_ms, issue_ms = steps_bound(
+                nbytes, steps, real_ops(real, m, False), iters)
+            call = lambda: dual_x_slab(*sub[:6], lam, g, iters=iters)
+            ms, dev_ms = cuda_ms(call), device_ms(call)
+            plain_ms = cuda_ms(lambda: ref.dual_x_ref(*sub[:6], lam, g,
+                                                      iters),
+                               reps=5, warmup=1)
+            out[f"w{slab.width}_rows{n}"] = {
+                "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                "bound_ms": b_ms, "bound_by": b_by,
+                "bound_bytes_ms": bytes_ms, "bound_issue_ms": issue_ms,
+                "real_entries": real}
+            log(f"serve K1 microbatch: slab {si} (w={slab.width}), {n} rows "
+                f"({real} real entries): {ms:.4f} ms (CUDA events around "
+                f"the wrapper, median of 20), its kernel on the device "
+                + ("not measured" if dev_ms is None else f"{dev_ms:.4f} ms")
+                + f" (profiled); plain {plain_ms:.4f} ms; bound "
+                f"{b_ms:.6f} ms ({b_by}) = max("
+                f"{nbytes} bytes = {bytes_ms:.6f} ms, issue {issue_ms:.6f} "
+                f"ms)")
+    require(err <= 1e-4, f"serve: K1 on 256-row sub-slabs max |dx| {err} "
+            f"against its plain version > 1e-4")
+    log(f"serve: K1 on every slab's 256-row sub-slab against "
+        f"kernels/ref.py::dual_x_ref: max |dx| {err:.3e} (atol 1e-4)")
+    return out, err
+
+
+def one_thread(srv, counts):
+    """SERVE_QUERIES queries of each of SERVE_SIZES random sources, one
+    thread: stats() of each size, and K1 launches a query."""
+    import numpy as np
+    ids = srv.source_ids()
+    rng = np.random.default_rng(3)
+    per = {}
+    for size in SERVE_SIZES:
+        srv.reset_stats()
+        reset_before = counts.total("dual_x_slab")
+        for _ in range(SERVE_QUERIES):
+            counts.run("one thread", srv.query,
+                       rng.choice(ids, size=size, replace=False).tolist())
+        st = srv.stats()
+        k1 = counts.total("dual_x_slab") - reset_before
+        per[size] = {"queries": st.queries, "p50_ms": st.p50_ms,
+                     "p95_ms": st.p95_ms, "mean_ms": st.mean_ms,
+                     "sources_per_s": st.sources_per_s,
+                     "k1_launches_per_query": k1 / st.queries}
+        log(f"serve one thread, {size} sources a query: {st.queries} "
+            f"queries, p50 {st.p50_ms:.4f} ms, p95 {st.p95_ms:.4f} ms "
+            f"(histogram buckets), mean {st.mean_ms:.4f} ms, "
+            f"{st.sources_per_s:.0f} sources/s, K1 launches a query "
+            f"{k1 / st.queries:.3f}")
+    require(sum(p["queries"] for p in per.values()) >= 2000,
+            "serve: fewer than 2,000 one-thread queries")
+    return per
+
+
+def export_round_trip(obj, lam, gamma, counts):
+    """write_shards of the whole instance to a temporary directory, read
+    back, bit for bit extract_primal; the directory is deleted."""
+    import shutil
+    import tempfile
+    from repro_torch.primal import extract_primal, read_shards, write_shards
+    d = tempfile.mkdtemp(prefix="serve_export_")
+    try:
+        t0 = time.perf_counter()
+        paths = counts.run("export", write_shards, obj, lam, gamma, d)
+        dt = time.perf_counter() - t0
+        size = sum(os.path.getsize(p) for p in paths)
+        n_src = sum(s.n for s in obj.lp.slabs)
+        t1 = time.perf_counter()
+        back = read_shards(paths, len(obj.lp.slabs))
+        dt_read = time.perf_counter() - t1
+        xs = extract_primal(obj, lam, gamma)
+        require(all(a is not None and a.shape == b.shape
+                    and (a == b).all() and
+                    (a.view("u4") == b.view("u4")).all()
+                    for a, b in zip(back, xs)),
+                "serve: read_shards(write_shards) differs from "
+                "extract_primal")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    log(f"serve export: {len(paths)} shards of {n_src} sources, {size} "
+        f"bytes on disk, written in {dt:.2f} s ({n_src / dt:.0f} "
+        f"sources/s), read back in {dt_read:.2f} s, equal to extract_primal "
+        f"bit for bit; directory deleted")
+    return {"shards": len(paths), "seconds": dt, "sources_per_s": n_src / dt,
+            "bytes": size, "read_seconds": dt_read}
+
+
+def export_cli():
+    """The CLI's --export-primal at parity size: its shards read back equal
+    extract_primal at its own final lambda bit for bit."""
+    import shutil
+    import tempfile
+    from repro_torch.launch import solve
+    from repro_torch.primal import extract_primal, read_shards
+    d = tempfile.mkdtemp(prefix="serve_cli_")
+    try:
+        args = solve.build_parser().parse_args(
+            PARITY_ARGS + ["--iterations", "200", "--chunk-rows", "512",
+                           "--export-primal", d])
+        lines = []
+        out = solve.run(args, log=lines.append)
+        names = sorted(os.listdir(d))
+        back = read_shards([os.path.join(d, n) for n in names],
+                           len(out.objective.lp.slabs))
+        xs = extract_primal(out.objective, out.lam, out.gamma)
+        same = all(a is not None and (a.view("u4") == b.view("u4")).all()
+                   for a, b in zip(back, xs))
+        note = [m for m in lines if m.startswith("exported ")]
+        log(f"cli: --export-primal at parity size: {note}; "
+            f"{out.result.get('export_shards')} shards, read back equal to "
+            f"extract_primal bit for bit {same}")
+        require(same and out.result.get("export_shards") == len(names) > 1,
+                "--export-primal shards differ from extract_primal")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def rhs_nudge(obj, factor):
+    """Phase 3's objective over b x `factor`: the same slabs, plan and
+    work table (a shallow copy shares them), its own x buffer."""
+    import copy
+    import torch
+    require(not obj._graphs and obj._gbuf is None,
+            "rhs_nudge: phase 3's objective should be aligned, graph-free")
+    new = copy.copy(obj)
+    new.lp = obj.lp._replace(b=obj.lp.b * factor)
+    new._xbuf = torch.zeros_like(obj._xbuf)
+    return new
+
+
+def warm_resolve_phase(srv, obj, counts):
+    """(e): the full-width warm re-solve onto b x 0.99 with a certificate,
+    queries after the swap against the new objective's primal, then an
+    ExplodingObjective refused (degraded, lambda unchanged) and cleared by
+    the next forced success.  Returns (record, the new objective)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import StoppingCriteria
+    from repro_torch.testing import ExplodingObjective
+    crit = StoppingCriteria(tol_rel_dual=1e-6, check_every=25,
+                            max_iterations=3000)
+    new = rhs_nudge(obj, 0.99)
+    t0 = time.perf_counter()
+    res = counts.run("warm re-solve", srv.warm_resolve, criteria=crit,
+                     obj=new, require_certificate=True)
+    dt = time.perf_counter() - t0
+    require(res is not None and res.converged,
+            f"serve: warm re-solve failed ({srv.last_failure_reason})")
+    require(srv.obj is new and torch.equal(srv.lam, res.lam),
+            "serve: the re-solved pair was not published")
+    log(f"serve warm re-solve (b x 0.99, full width, certificate required): "
+        f"{res.iterations_run} iterations, {res.stop_reason.value}, "
+        f"{dt:.2f} s including the certificate and the new objective's "
+        f"query shapes; launches {counts.by_step['warm re-solve']}")
+    ids = np.random.default_rng(5).choice(srv.source_ids(), size=2000,
+                                          replace=False)
+    served_bits("after the swap (b x 0.99)", srv, new, ids.tolist(), counts,
+                "warm re-solve")
+    lam_before = srv.lam.clone()
+    bad = srv.warm_resolve(criteria=crit, obj=ExplodingObjective(new),
+                           force=True)
+    st = srv.stats()
+    require(bad is None and st.degraded and srv.obj is new
+            and torch.equal(srv.lam, lam_before),
+            "serve: ExplodingObjective was not refused cleanly")
+    log(f"serve: ExplodingObjective refused ({srv.last_failure_reason}); "
+        f"degraded {st.degraded}, served lambda unchanged")
+    t1 = time.perf_counter()
+    again = counts.run("warm re-solve", srv.warm_resolve, criteria=crit,
+                       force=True)
+    dt2 = time.perf_counter() - t1
+    st = srv.stats()
+    require(again is not None and not st.degraded
+            and st.consecutive_failures == 0,
+            "serve: a forced success did not clear the degraded state")
+    log(f"serve: forced re-solve from the served lambda: "
+        f"{again.iterations_run} iterations in {dt2:.2f} s; degraded "
+        f"{st.degraded}, resolve failures {st.resolve_failures}")
+    return {"iterations": res.iterations_run, "seconds": dt,
+            "stop_reason": res.stop_reason.value,
+            "forced_iterations": again.iterations_run,
+            "forced_seconds": dt2}, new
+
+
+def queries_during_resolve(srv):
+    """One thread's back-to-back 64-source queries, idle and while another
+    thread re-solves RESOLVE_FIXED iterations from the served lambda: on
+    the server's two streams, then (a diagnostic of that design) with the
+    re-solve on the query stream.  Exact percentiles of the host clock;
+    no launch is counted (two threads launch)."""
+    import threading
+    import numpy as np
+    from repro_torch.core import StoppingCriteria
+    ids = srv.source_ids()
+    rng = np.random.default_rng(13)
+    crit = StoppingCriteria(max_iterations=RESOLVE_FIXED)
+
+    def probe(resolve):
+        lat = []
+        t = threading.Thread(target=resolve) if resolve else None
+        if t is not None:
+            t.start()
+        while (len(lat) < 200) if t is None else t.is_alive():
+            q = rng.choice(ids, size=64, replace=False).tolist()
+            t0 = time.perf_counter()
+            srv.query(q)
+            lat.append((time.perf_counter() - t0) * 1e3)
+        if t is not None:
+            t.join(timeout=300.0)
+            require(not t.is_alive(), "serve: the re-solve did not end")
+        return {"n": len(lat), "p50_ms": float(np.percentile(lat, 50)),
+                "p95_ms": float(np.percentile(lat, 95))}
+
+    out, resolved = {"idle": probe(None)}, []
+
+    def resolve():
+        t0 = time.perf_counter()
+        res = srv.warm_resolve(criteria=crit, force=True)
+        resolved.append((res, time.perf_counter() - t0))
+
+    out["two streams"] = probe(resolve)
+    own = srv._resolve_stream
+    srv._resolve_stream = srv._query_stream
+    try:
+        out["one shared stream"] = probe(resolve)
+    finally:
+        srv._resolve_stream = own
+    require(len(resolved) == 2 and all(r is not None for r, _ in resolved),
+            "serve: a fixed re-solve failed")
+    for (k, v), (_, sec) in zip(list(out.items())[1:], resolved):
+        v["resolve_seconds"] = sec
+    log(f"serve: 64-source queries on one thread, p50 / p95 ms (exact), "
+        f"idle and beside a {RESOLVE_FIXED}-iteration re-solve: " + "; ".join(
+            f"{k}: n={v['n']} {v['p50_ms']:.4f} / {v['p95_ms']:.4f}"
+            + (f" (re-solve {v['resolve_seconds']:.3f} s)"
+               if "resolve_seconds" in v else "")
+            for k, v in out.items()))
+    return out
+
+
+def frontend_drill(srv, obj, capacity_rps):
+    """(f): DRILL_THREADS client threads submit DRILL_REQUEST-source
+    requests open loop at DRILL_LOAD x the one-thread capacity for about
+    DRILL_SECONDS; a refresh onto b x 0.98 lands mid-run and /metrics is
+    scraped once over loopback; then drain.  Every ticket answered, 0
+    ERROR, no OK past its deadline, every submission classified."""
+    import threading
+    import urllib.request
+    import numpy as np
+    from repro_torch.core import StoppingCriteria
+    from repro_torch.obs import parse_exposition
+    from repro_torch.primal import FrontendConfig, RequestStatus, \
+        ServerFrontend
+    fe = ServerFrontend(srv, FrontendConfig(
+        max_queue=512, max_batch=64, default_deadline_s=DRILL_DEADLINE,
+        metrics_port=0))
+    ids = srv.source_ids()
+    rate = DRILL_LOAD * capacity_rps
+    gap = DRILL_THREADS / rate
+    tickets, lock, stop = [], threading.Lock(), threading.Event()
+
+    def client(k):
+        # open loop on a fixed schedule; a client behind it skips to the
+        # next slot, so it always sleeps between requests (one that never
+        # blocks holds the interpreter lock until the switch interval
+        # forces it off, and every GIL hand-back of the dispatch thread
+        # then waits behind it)
+        rng = np.random.default_rng(100 + k)
+        t_next = time.perf_counter()
+        mine = []
+        while not stop.is_set():
+            mine.append(fe.submit(rng.choice(ids, size=DRILL_REQUEST,
+                                             replace=False).tolist()))
+            now = time.perf_counter()
+            t_next += gap
+            if t_next <= now:
+                t_next = now + gap
+            stop.wait(t_next - now)
+        with lock:
+            tickets.extend(mine)
+
+    reset_counters()
+    srv.reset_stats()
+    threads = [threading.Thread(target=client, args=(k,), daemon=True)
+               for k in range(DRILL_THREADS)]
+    t0 = time.monotonic()
+    for t in threads:
+        t.start()
+    stop.wait(DRILL_SECONDS * 0.3)
+    with urllib.request.urlopen(fe.exporter.url, timeout=10.0) as resp:
+        series = parse_exposition(resp.read().decode("utf-8"))
+    want = ('repro_frontend_latency_seconds_count{status="ok"}',
+            "repro_frontend_queue_depth",
+            'repro_frontend_requests_total{status="shed"}',
+            'repro_frontend_requests_total{status="timeout"}',
+            "repro_memory_host_rss_bytes", "repro_memory_device_bytes_in_use")
+    missing = [s for s in want if s not in series]
+    require(not missing and series["repro_memory_device_bytes_in_use"] > 0,
+            f"serve drill: /metrics lacks {missing} or the device gauge is 0")
+    log(f"serve drill: /metrics scraped over loopback ({len(series)} series, "
+        f"parsed); device bytes in use "
+        f"{series['repro_memory_device_bytes_in_use']:.0f}, queue depth "
+        f"{series['repro_frontend_queue_depth']:.0f}")
+    stop.wait(DRILL_SECONDS * 0.1)
+    target = rhs_nudge(obj, 0.98)
+    crit = StoppingCriteria(tol_rel_dual=1e-6, check_every=25,
+                            max_iterations=3000)
+    r0 = time.monotonic()
+    require(fe.refresh(criteria=crit, obj=target, force=True),
+            "serve drill: refresh refused")
+    while fe.refresh_in_flight() and time.monotonic() - r0 < 300:
+        time.sleep(0.002)
+    r1 = time.monotonic()
+    status, res = fe.last_resolve
+    rest = DRILL_SECONDS - (time.monotonic() - t0)
+    if rest > 0:
+        stop.wait(rest)
+    stop.set()
+    for t in threads:
+        t.join(timeout=30.0)
+    require(not any(t.is_alive() for t in threads),
+            "serve drill: a client thread did not stop")
+    snap = fe.drain(timeout=30.0)
+    import torch
+    torch.cuda.synchronize()
+    # two threads launched here (dispatch, refresh) and the counters take
+    # no lock: these counts are a floor, kept out of the serving totals
+    got = read_counters()
+    require(status == "accepted" and res is not None and res.converged
+            and srv.obj is target,
+            f"serve drill: the refresh was {status} "
+            f"({srv.last_failure_reason})")
+    resp = [t.result(timeout=1.0) for t in tickets]
+    by = {s: 0 for s in RequestStatus}
+    for r in resp:
+        by[r.status] += 1
+    late = sum(1 for t, r in zip(tickets, resp)
+               if r.status is RequestStatus.OK
+               and r.latency_s > t.deadline - t.t_submit)
+    classified = (snap["ok_total"] + snap["shed_total"]
+                  + snap["timeout_total"] + snap["error_total"])
+    require(by[RequestStatus.ERROR] == 0 and late == 0
+            and classified == snap["submitted_total"] == len(tickets)
+            and all(t.done() for t in tickets),
+            f"serve drill: {by}, {late} late OK, classified {classified} of "
+            f"{snap['submitted_total']} ({len(tickets)} tickets)")
+
+    def ok_ms(lo, hi):
+        lat = [r.latency_s * 1e3 for t, r in zip(tickets, resp)
+               if r.status is RequestStatus.OK and lo <= t.t_submit < hi]
+        if not lat:
+            return 0, None, None
+        return (len(lat), float(np.percentile(lat, 50)),
+                float(np.percentile(lat, 95)))
+
+    before, during = ok_ms(t0, r0), ok_ms(r0, r1)
+    require(during[0] > 0, "serve drill: no OK request during the refresh")
+    fst, qst = fe.stats(), srv.stats()
+    rec = {"submitted": len(tickets), "ok": by[RequestStatus.OK],
+           "shed": by[RequestStatus.SHED],
+           "timeout": by[RequestStatus.TIMEOUT], "error": 0,
+           "offered_rps": len(tickets) / DRILL_SECONDS,
+           "target_rps": rate, "capacity_rps": capacity_rps,
+           "ok_before": {"n": before[0], "p50_ms": before[1],
+                         "p95_ms": before[2]},
+           "ok_during_refresh": {"n": during[0], "p50_ms": during[1],
+                                 "p95_ms": during[2]},
+           "refresh_seconds": r1 - r0,
+           "refresh_iterations": res.iterations_run,
+           "batches": fst.batches, "ema_batch_ms": fst.ema_batch_ms,
+           "query_p50_ms": qst.p50_ms, "query_p95_ms": qst.p95_ms,
+           "query_mean_ms": qst.mean_ms,
+           "launches_floor": got}
+    log(f"serve drill: {DRILL_THREADS} client threads, {DRILL_REQUEST} "
+        f"sources a request, deadline {DRILL_DEADLINE} s, offered "
+        f"{rec['offered_rps']:.0f} requests/s against a one-thread capacity "
+        f"of {capacity_rps:.0f} (target {rate:.0f}); {fst.batches} batches, "
+        f"each one server query: p50 {qst.p50_ms:.4f} ms, p95 "
+        f"{qst.p95_ms:.4f} ms (histogram buckets), mean "
+        f"{qst.mean_ms:.4f} ms; batch time EMA at the end "
+        f"{fst.ema_batch_ms:.3f} ms: {len(tickets)} "
+        f"submitted, OK {rec['ok']}, SHED {rec['shed']}, TIMEOUT "
+        f"{rec['timeout']}, ERROR 0, no OK past its deadline, all "
+        f"classified; OK latency before the refresh n={before[0]} p50 "
+        f"{before[1]} ms p95 {before[2]} ms, during it n={during[0]} p50 "
+        f"{during[1]} ms p95 {during[2]} ms (exact percentiles); the "
+        f"refresh (b x 0.98) {r1 - r0:.3f} s, {res.iterations_run} "
+        f"iterations; launches (two threads, unlocked counters: a floor) "
+        f"{got}")
+    return rec
+
+
+def serve_phase(out, wide_out):
+    """Phase 11: the lambda-resident allocation server and its frontend on
+    phase 3's objective and final lambda.  Returns K1's and K2's serving
+    fields for the kernels line."""
+    import numpy as np
+    import torch
+    from repro_torch.launch import solve
+    from repro_torch.primal import AllocationServer
+    obj, lam, gamma = out.objective, out.lam, out.gamma
+    counts = ServeCounts()
+    cfg, _ = solve.solve_config(solve.build_parser().parse_args(MAIN_ARGS))
+    t0 = time.perf_counter()
+    srv = AllocationServer(obj, lam, gamma, config=cfg)
+    t_build = time.perf_counter() - t0
+    build_s = srv.snapshot_build_s
+    n_warm = counts.run("warmup", srv.warmup)
+    k1_warm = counts.by_step["warmup"]["dual_x_slab"]
+    log(f"serve (a): snapshot build {srv.snapshot_build_s:.3f} s (routes of "
+        f"{len(srv.source_ids())} sources and host dest/mask copies; the "
+        f"server {t_build:.3f} s), warmup ran {n_warm} (slab, length) "
+        f"shapes, K1 launches {k1_warm}")
+    require(n_warm > 0 and k1_warm == n_warm,
+            f"serve: warmup {n_warm} shapes, K1 launched {k1_warm}")
+    # (b) bits at full width, every slab, and on the wide cell
+    rng = np.random.default_rng(7)
+    ids = srv.source_ids()
+    picked = set(rng.choice(ids, size=SERVE_BITS, replace=False).tolist())
+    for s in obj.lp.slabs:           # each slab's first and last row too
+        sid = s.source_ids.cpu().numpy()
+        picked.update(int(v) for v in sid[[0, -1]] if v >= 0)
+    n_bits = served_bits("full width", srv, obj, sorted(picked), counts,
+                         "bits")
+    require(n_bits >= SERVE_BITS, "serve: fewer than 10,000 rows held")
+    wsrv = AllocationServer(wide_out.objective, wide_out.lam, wide_out.gamma)
+    require(max(s.width for s in wide_out.objective.lp.slabs) > 1024,
+            "serve: the wide cell has no slab past 1,024")
+    served_bits("the wide cell (3000 x 5000, nu = 1000)", wsrv,
+                wide_out.objective, wsrv.source_ids().tolist(), counts,
+                "bits")
+    del wsrv
+    micro, err = microbatch_records(obj, lam, gamma)
+    # (c) one thread
+    per = one_thread(srv, counts)
+    # (d) export
+    export = export_round_trip(obj, lam, gamma, counts)
+    export_cli()
+    # (e) warm re-solve at full width
+    resolve, new = warm_resolve_phase(srv, obj, counts)
+    resolve["queries_during"] = queries_during_resolve(srv)
+    # (f) the frontend drill, at DRILL_LOAD x the capacity of 64-source
+    # queries, in requests of DRILL_REQUEST sources
+    capacity = per[64]["sources_per_s"] / DRILL_REQUEST
+    drill = frontend_drill(srv, obj, capacity)
+    k1 = counts.total("dual_x_slab")
+    k2 = counts.total("ax_reduce_plan_x")
+    log(f"serve: launches by run {counts.by_step} (the drill's apart); "
+        f"K1 {k1}, K2 {k2}")
+    require(k1 > 0 and k2 > 0, "serve: K1 or K2 never ran on the serving "
+            "path")
+    del srv, new
+    torch.cuda.empty_cache()
+    return ({"launches_serving": k1,
+             "launches_serving_by_run": {
+                 k: v["dual_x_slab"] for k, v in counts.by_step.items()},
+             "serving_microbatch": micro, "serving_max_abs_err": err,
+             "serving_one_thread": {str(k): v for k, v in per.items()},
+             "serving_snapshot_build_s": build_s,
+             "serving_export": export, "serving_warm_resolve": resolve,
+             "serving_drill": drill},
+            {"launches_serving": k2,
+             "launches_serving_by_run": {
+                 k: v["ax_reduce_plan_x"] for k, v in counts.by_step.items()}})
+
+
 def reset_counters():
     for fn in WRAPPERS.values():
         fn.launches = 0
@@ -2405,7 +2997,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 6. rows wider than 1,024
-    for name, rec in wide_rows().items():
+    wide_recs, wide_out = wide_rows()
+    for name, rec in wide_recs.items():
         records[name]["wide"] = rec
 
     # 7. parity with the reference's recorded run, every mode
@@ -2432,11 +3025,21 @@ def main() -> int:
                "assignment_eq (main path)": formulation_assignment(inst)}
     torch.cuda.empty_cache()
     compiled_matching(out)
-    single_main = (out.result, out.lam, out.solve_seconds)
-    del out
     torch.cuda.empty_cache()
     by_form.update(formulation_parity())
     log(f"phase 9 (formulations): {time.perf_counter() - t_forms:.1f} s")
+
+    # 11. the allocation server and its frontend on phase 3's objective
+    # and final lambda (run before phase 10, which frees them)
+    t_serve = time.perf_counter()
+    k1_serve, k2_serve = serve_phase(out, wide_out)
+    records["dual_x_slab"].update(k1_serve)
+    records["ax_reduce_plan_x"].update(k2_serve)
+    del wide_out
+    log(f"phase 11 (serve): {time.perf_counter() - t_serve:.1f} s")
+    single_main = (out.result, out.lam, out.solve_seconds)
+    del out
+    torch.cuda.empty_cache()
     for name, rec in records.items():
         rec["launches_by_formulation"] = {
             run: n[name] for run, n in by_form.items()}

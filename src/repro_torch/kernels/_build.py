@@ -6,6 +6,11 @@ and loaded with `ctypes`.  The libraries go to `build/repro_torch_kernels/
 <hash>/` at the root of the checkout, keyed by a hash of the sources and
 flags, so a library is built once per source version.  A failed build
 raises: there is no fallback.
+
+`build()` is thread-safe: the serving frontend's dispatch and resolve
+threads may both reach a kernel first.  The `launches` counters of the
+wrappers are plain integers bumped without a lock; they are read only
+around single-threaded windows.
 """
 from __future__ import annotations
 
@@ -14,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Optional
@@ -68,6 +74,9 @@ class _State:
     libs: Optional[Dict[str, ctypes.CDLL]] = None
     build_seconds: float = 0.0
     build_log: str = ""
+    # one build at a time: two threads would both spawn nvcc onto the
+    # same per-process temporary names
+    lock = threading.Lock()
 
 
 def cuda_tool(name: str) -> str:
@@ -104,8 +113,15 @@ def _source_hash() -> str:
 def build() -> Dict[str, ctypes.CDLL]:
     """Compile (if needed) and load every kernel library; returns
     {source name: CDLL}.  Raises RuntimeError on a failed build."""
-    if _State.libs is not None:
+    if _State.libs is not None:     # the fast path takes no lock
         return _State.libs
+    with _State.lock:
+        if _State.libs is None:
+            _State.libs = _build_locked()
+    return _State.libs
+
+
+def _build_locked() -> Dict[str, ctypes.CDLL]:
     out_dir = BUILD_ROOT / _source_hash()
     out_dir.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
@@ -141,7 +157,6 @@ def build() -> Dict[str, ctypes.CDLL]:
             f.restype = restype
         libs[name] = lib
     _State.build_seconds = time.perf_counter() - t0
-    _State.libs = libs
     return libs
 
 

@@ -303,6 +303,7 @@ def _launch(wrapper, lib_name, src, buckets, out, work):
                                   len(buckets), bk.idx, bk.mask, bk.widths,
                                   *table)
     _build.check(rc, f"{lib_name} kernel launch")
+    # unlocked: counts are read around single-threaded windows only
     wrapper.launches += 1
     return out
 

@@ -145,6 +145,7 @@ def _launch(wrapper, a_vals, c_vals, dest_idx, mask, ub, s, lam, gamma,
                                   x_sq.data_ptr(), n, w, m, J, int(iters),
                                   lanes, vpt, store, stream)
     _build.check(rc, f"{fn_name} kernel launch")
+    # unlocked: counts are read around single-threaded windows only
     wrapper.launches += 1
     return out, c_x, x_sq
 

@@ -64,6 +64,7 @@ def _launch(v, ub, s, mask, iters, layout=None, store=None):
                          scratch.data_ptr(), n, w, int(iters), lanes, vpt,
                          store, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "proj kernel launch")
+    # unlocked: counts are read around single-threaded windows only
     proj_boxcut.launches += 1
     return x
 

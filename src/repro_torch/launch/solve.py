@@ -13,8 +13,11 @@ run the `--algorithm` update rule (agd, pga, pdhg, bb) through the
 chunked engine with the `--ax-mode` Ax reduction (default: the x-carry
 aligned path), and with `--certify` extract a repaired primal witness and
 print the duality-gap certificate over the formulation's constraint
-families, over the whole preconditioned LP.  `--json` prints one result
-object with the reference's keys (logs move to stderr).  Runs on the card
+families, over the whole preconditioned LP; `--export-primal DIR` writes
+x*(λ) there as `.npz` decision shards (`primal.write_shards`), which an
+`AllocationServer` over the same λ reproduces row by row.  `--json`
+prints one result object with the reference's keys (logs move to
+stderr).  Runs on the card
 by default and raises when there is none; `--device cpu` runs the plain
 versions.
 
@@ -193,7 +196,11 @@ def build_parser() -> argparse.ArgumentParser:
                     help="after the solve, extract+repair a feasible primal "
                          "witness and print the duality-gap certificate")
     ap.add_argument("--chunk-rows", type=int, default=4096,
-                    help="source rows per extraction chunk for --certify")
+                    help="source rows per extraction chunk for "
+                         "--export-primal/--certify")
+    ap.add_argument("--export-primal", default=None, metavar="DIR",
+                    help="after the solve, write x*(lambda) to DIR as .npz "
+                         "decision shards, one per --chunk-rows block")
     ap.add_argument("--save-duals", default=None, metavar="PATH",
                     help="write the final lambda to PATH (.npz) after the "
                          "solve")
@@ -526,20 +533,35 @@ def run(args, log=print, instance: Optional[Instance] = None) -> Outcome:
         # certificate and the caller; several: rank 0 builds one below
         obj = obj.local if ranks.world == 1 else obj
     t_cert = time.perf_counter()
-    if args.certify and res.stop_reason == StopReason.PREEMPTED:
-        log("skipping certification: solve was preempted mid-trajectory "
-            "(resume it to completion first)")
-    elif args.certify and lead:
-        from ..primal import certify, format_certificate
+    extract = args.export_primal or args.certify
+    if extract and res.stop_reason == StopReason.PREEMPTED:
+        log("skipping primal export/certification: solve was preempted "
+            "mid-trajectory (resume it to completion first)")
+    elif extract and lead:
+        from ..primal import certify, format_certificate, write_shards
         serve = obj
         if isinstance(obj, DistributedMatchingObjective):
             # over the whole preconditioned LP, as the reference does
             serve = MatchingObjective(lp_to_torch(lp, device),
                                       ax_mode=args.ax_mode)
-        cert = certify(serve, res.lam, np.float32(gamma_last),
-                       chunk_rows=args.chunk_rows)
-        log(format_certificate(cert))
-        result["certificate_valid"] = bool(cert.valid)
+        gamma_final = np.float32(gamma_last)
+        if args.export_primal:
+            t_x = time.perf_counter()
+            paths = write_shards(serve, res.lam, gamma_final,
+                                 args.export_primal,
+                                 chunk_rows=args.chunk_rows)
+            dt_x = time.perf_counter() - t_x
+            n_src = sum(s.n for s in serve.lp.slabs)
+            log(f"exported {len(paths)} decision shards ({n_src} sources) "
+                f"-> {args.export_primal} in {dt_x:.1f}s "
+                f"({n_src / max(dt_x, 1e-9):.0f} sources/s)")
+            result["export_shards"] = len(paths)
+        t_cert = time.perf_counter()
+        if args.certify:
+            cert = certify(serve, res.lam, gamma_final,
+                           chunk_rows=args.chunk_rows)
+            log(format_certificate(cert))
+            result["certificate_valid"] = bool(cert.valid)
     return Outcome(result=result, objective=obj, lam=res.lam,
                    gamma=gamma_last, generate_seconds=generate_seconds,
                    setup_seconds=t_solve - t0, solve_seconds=t_end - t_solve,

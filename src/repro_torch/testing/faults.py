@@ -7,12 +7,17 @@
   * `ChunkFaultInjector` poisons a chunk's result through
     `SolveEngine.chunk_fault_hook`: a transient fault that fires a set
     number of times, so a retry succeeds (the rollback path).
+  * `ExplodingObjective` raises inside `calculate` (a re-solve that dies
+    outright); `SlowObjective` stalls `calculate` or `primal_rows` by a
+    host sleep (a slow re-solve, a slow query): the serving path's
+    injectors.
   * `PreemptAfter`: a `preempt_fn` that trips after n chunk boundaries.
   * `corrupt_checkpoint` / `litter_tmp` sabotage a checkpoint directory.
 """
 from __future__ import annotations
 
 import os
+import time
 from typing import Optional
 
 import torch
@@ -71,6 +76,68 @@ class ChunkFaultInjector:
             poison = torch.full_like(getattr(state, self.field), float("nan"))
             state = state._replace(**{self.field: poison})
         return state, stats
+
+
+class ExplodingObjective:
+    """Raises inside `calculate` — models a re-solve that dies outright
+    (out of memory, a failed launch).  Exercises the server's exception
+    path."""
+
+    def __init__(self, inner, message: str = "injected resolve failure"):
+        self.inner = inner
+        self.message = message
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    def calculate(self, lam, gamma):
+        raise RuntimeError(self.message)
+
+
+class SlowObjective:
+    """Stalls the objective by a fixed host-side sleep — the overload /
+    slow-dependency injector for the serving frontend (DESIGN.md §12).
+
+    The reference threads its sleep through a host callback inside the
+    traced value; eager PyTorch runs the wrapper's Python on every call,
+    so a `time.sleep` in the call path is the counterpart.  Values are
+    the inner objective's, untouched (no zero is added: +0.0 would turn a
+    −0.0 into 0.0) — only latency is injected.
+
+    slow_calculate    stall each `calculate` (a slow warm_resolve: the
+                      frontend's refresh must not stall queries);
+    slow_primal_rows  stall each `primal_rows` batch (a slow query: drives
+                      queue growth → shedding, and deadline misses →
+                      TIMEOUT classification).
+    """
+
+    def __init__(self, inner, delay_s: float = 0.05,
+                 slow_calculate: bool = False,
+                 slow_primal_rows: bool = True):
+        self.inner = inner
+        self.delay_s = float(delay_s)
+        self.slow_calculate = slow_calculate
+        self.slow_primal_rows = slow_primal_rows
+        self.calls = 0   # counts the sleeps executed
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    def _stall(self):
+        self.calls += 1
+        time.sleep(self.delay_s)
+
+    def calculate(self, lam, gamma):
+        out = self.inner.calculate(lam, gamma)
+        if self.slow_calculate:
+            self._stall()
+        return out
+
+    def primal_rows(self, lam, gamma, slab_index, rows):
+        x = self.inner.primal_rows(lam, gamma, slab_index, rows)
+        if self.slow_primal_rows:
+            self._stall()
+        return x
 
 
 class PreemptAfter:

@@ -796,3 +796,71 @@ def test_plain_sweep_graph_equals_eager(dev):
         assert torch.equal(obj._views(i, slab)[0], xs[i])
     again = obj.calculate(lam, gamma)
     assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
+
+
+def test_server_on_card_bitwise_and_streams(dev):
+    """The allocation server on the card: warmup launches K1 once a
+    shape; served rows equal `primal` bit for bit on every slab, the
+    2,048-wide one included (a block a row); queries and re-solves run on
+    two streams of the server's own, neither the default one."""
+    from repro_torch import primal
+    from repro_torch.kernels import dual_grad
+    lp_np = generate(InstanceSpec(num_sources=3000, num_destinations=5000,
+                                  avg_nnz_per_row=1000, seed=42))
+    lp, _ = precondition(lp_to_torch(lp_np, dev), row_norm=True)
+    obj = MatchingObjective(lp, ax_mode="aligned")
+    assert max(s.width for s in lp.slabs) > 1024
+    lam = torch.from_numpy(np.random.default_rng(2).uniform(
+        0, 0.05, obj.dual_shape).astype(np.float32)).to(dev)
+    srv = primal.AllocationServer(obj, lam, 0.1, max_batch=64)
+    before = dual_grad.dual_x_slab.launches
+    n = srv.warmup()
+    assert dual_grad.dual_x_slab.launches - before == n > 0
+    full = obj.primal(srv.lam, torch.full((), 0.1, device=dev))
+    got = srv.query(srv.source_ids().tolist())
+    for d in got.values():
+        assert np.array_equal(d.x, full[d.slab_index][d.row].cpu().numpy())
+    default = torch.cuda.default_stream(dev)
+    assert srv._query_stream != default and srv._resolve_stream != default
+    assert srv._query_stream != srv._resolve_stream
+
+
+def test_frontend_refresh_on_card(dev):
+    """A background refresh on the card (its own stream) while the
+    frontend answers: every response OK, each bit for bit the old or the
+    new pair's rows, and the new pair served after it."""
+    from repro_torch import primal
+    lp_np = generate(InstanceSpec(num_sources=20000, num_destinations=300,
+                                  avg_nnz_per_row=20, seed=9))
+    lp, _ = precondition(lp_to_torch(lp_np, dev), row_norm=True)
+    obj = MatchingObjective(lp, ax_mode="aligned")
+    cfg = SolveConfig(iterations=400, gamma=0.01, max_step=1e-1,
+                      initial_step=1e-5)
+    res = Maximizer(cfg).maximize(obj)
+    srv = primal.AllocationServer(obj, res.lam, 0.01, config=cfg)
+    srv.warmup()
+    tight = MatchingObjective(lp._replace(b=lp.b * 0.9), ax_mode="aligned")
+    gamma = torch.full((), 0.01, device=dev)
+    old = [x.cpu().numpy() for x in obj.primal(srv.lam, gamma)]
+    fe = primal.ServerFrontend(srv)
+    ids = srv.source_ids()
+    assert fe.refresh(obj=tight)
+    answers, k = [], 0
+    while fe.refresh_in_flight() and k < 500:
+        answers.append(fe.query(ids[k % 40 * 8:k % 40 * 8 + 8].tolist(),
+                                deadline_s=30.0, timeout=60.0))
+        k += 1
+    status, warm = fe.wait_refresh(timeout=300.0)
+    assert status == "accepted" and srv.obj is tight
+    new = [x.cpu().numpy() for x in tight.primal(srv.lam, gamma)]
+    for r in answers:
+        assert r.status is primal.RequestStatus.OK
+        rows = list(r.decisions.values())
+        assert (all(np.array_equal(d.x, old[d.slab_index][d.row])
+                    for d in rows)
+                or all(np.array_equal(d.x, new[d.slab_index][d.row])
+                       for d in rows))
+    after = fe.query(ids[:8].tolist(), deadline_s=30.0, timeout=60.0)
+    for d in after.decisions.values():
+        assert np.array_equal(d.x, new[d.slab_index][d.row])
+    fe.drain(timeout=30.0)

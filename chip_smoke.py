@@ -146,6 +146,24 @@ nothing of JAX or of the JAX package.  Phases, each failing loudly:
               classified, 0 ERROR, no OK past its deadline.  K1's and
               K2's launches of (a)-(e), each run counted alone, go into
               the kernels line (launches_serving)
+ 12. obs      run after phase 11 and before phase 10: the solve's
+              observability.  (a) phase 3's objective solved twice in turn
+              through Maximizer, bare and with a JSONL run log, a memory
+              sampler and a torch.profiler window over chunks 2-3: lambda,
+              the stats, iterations and stop reason bit for bit; the log
+              valid with one check event a diagnostic; the trace's K1 and
+              K2 kernels (a K2 call is two CUDA launches) equal to the
+              launch counters over the window; the manifest's peak HBM
+              between the census's argument bytes and
+              max_memory_allocated; the census's K1 and K2 bytes equal to
+              phase 4's; ms/iteration of both, the execute / host split
+              of `report.summarize`.  (b) the wide cell through the CLI's
+              main with --certify --log-jsonl --profile-dir --metrics-port
+              0 --max-host-rss-mb 1 --json: stdout one object with its
+              peaks, the guard fired once, the report renders the log, the
+              metrics digest has the memory series; aligned_gvals's census
+              names K3 and K4.  (c) a NaN objective under a profiler window
+              stops DIVERGED and leaves its trace
 
 The last three lines of standard output are the card's name and power
 limit, the kernels' JSON record, and {"ok": true, "device": {...}}.  Exits
@@ -609,6 +627,7 @@ def check_dual_x(obj, lam, gamma):
     from repro_torch.kernels import dual_grad as dg
     from repro_torch.kernels import ref
     from repro_torch.kernels.dual_grad import dual_x_slab
+    from repro_torch.launch import census
     slabs = obj.lp.slabs
     g = torch.full((), gamma, dtype=torch.float32, device=lam.device)
     iters = obj.proj_iters
@@ -658,13 +677,16 @@ def check_dual_x(obj, lam, gamma):
     ms = cuda_ms(kernel)
     plain_ms = cuda_ms(plain, reps=5, warmup=1)
     m, J = lam.shape
-    nbytes, real, padded, rows, ea, ec, eu = _slab_bytes(slabs, m, J)
-    nbytes += padded * ec                     # x written
+    # the launch census's count (phase 12 holds evaluation_census to it)
+    c = census.slab_counts(slabs)
+    nbytes = census.sweep_bytes(c, m, J)
+    real, padded, rows, ea, ec, eu = (c.real, c.padded, c.rows, c.ea, c.ec,
+                                      c.eu)
     rec = {"name": "dual_x_slab", "route": "cuda",
            "source": "src/repro_torch/kernels/csrc/dual_x.cu",
            "replaces": "src/repro/kernels/dual_grad.py:80",
            "max_abs_err": err_x, "ms": ms, "plain_ms": plain_ms,
-           "library_ms": None}
+           "library_ms": None, "bytes": nbytes}
     rec.update(_lanes_bound("dual_x_slab", nbytes, steps, real, m, False,
                             iters, sweep))
     log(f"dual_x_slab  one sweep ({len(slabs)} slabs, {real} real edges of "
@@ -823,14 +845,15 @@ def check_ax_reduce(obj):
     lib = (csr @ x[:, None]).reshape(m, J)
     require(torch.allclose(lib, full, rtol=1e-4, atol=1e-4), "CSR yardstick")
     library_ms = cuda_ms(lambda: csr @ x[:, None])
-    # bytes the function must move: a_dm, edge_idx and the x gather at the
-    # real entries only (the kernel skips masked ones), the mask over every
-    # plan entry, dest_ids per row, the (m, J) result written once
-    real = sum(int(b.mask.sum()) for b in plan.buckets)
-    entries = sum(b.mask.numel() for b in plan.buckets)
-    prow = sum(b.dest_ids.numel() for b in plan.buckets)
-    ea, ex = plan.buckets[0].a_dm.element_size(), x.element_size()
-    nbytes = real * (ea * m + 4 + ex) + entries + prow * 4 + m * J * 4
+    # bytes the function must move (the launch census's count): a_dm,
+    # edge_idx and the x gather at the real entries only (the kernel skips
+    # masked ones), the mask over every plan entry, dest_ids per row, the
+    # (m, J) result written once
+    from repro_torch.launch import census
+    p = census.plan_counts(plan)
+    real, entries, prow, ea = p.real, p.entries, p.rows, p.ea
+    ex = x.element_size()
+    nbytes = census.ax_bytes(p, m, J, ex, carry=True)
     bound_ms, bound_by = bound(nbytes, 2 * m * real)
     log(f"ax_reduce_plan_x  one Ax ({len(plan.buckets)} buckets, {real} "
         f"real entries of {entries}; 1 call, 2 CUDA launches): {ms:.4f} ms; "
@@ -844,22 +867,8 @@ def check_ax_reduce(obj):
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms, "items": int(work.items.shape[0]),
-            "item_entries": work.item_entries, "ms_by_table": sweep}
-
-
-def _slab_bytes(slabs, m, J):
-    """The bytes every slab kernel reads of the slabs: a, c, dest and ub at
-    the real edges only (the kernels read them only where the mask is set),
-    the mask over every padded entry, s per row, lambda once; and the
-    counts behind them."""
-    real = sum(int(s.mask.sum()) for s in slabs)
-    padded = sum(s.n * s.width for s in slabs)
-    rows = sum(s.n for s in slabs)
-    ea, ec, eu = (slabs[0].a_vals.element_size(),
-                  slabs[0].c_vals.element_size(), slabs[0].ub.element_size())
-    nbytes = (real * (ea * m + ec + 4 + eu) + padded
-              + rows * slabs[0].s.element_size() + m * J * 4)
-    return nbytes, real, padded, rows, ea, ec, eu
+            "item_entries": work.item_entries, "ms_by_table": sweep,
+            "bytes": nbytes}
 
 
 def check_dual_grad(obj, lam, gamma, steps):
@@ -932,8 +941,11 @@ def check_dual_grad(obj, lam, gamma, steps):
     ms = cuda_ms(kernel)
     plain_ms = cuda_ms(plain, reps=5, warmup=1)
     m, J = lam.shape
-    nbytes, real, padded, rows, ea, ec, eu = _slab_bytes(slabs, m, J)
-    nbytes += padded * (ec + ea * m)          # x and gvals written
+    from repro_torch.launch import census
+    c = census.slab_counts(slabs)
+    nbytes = census.sweep_bytes(c, m, J, gvals=True)
+    real, padded, rows, ea, ec, eu = (c.real, c.padded, c.rows, c.ea, c.ec,
+                                      c.eu)
     rec = {"name": "dual_grad_slab", "route": "cuda",
            "source": "src/repro_torch/kernels/csrc/dual_x.cu",
            "replaces": "src/repro/kernels/dual_grad.py:32",
@@ -1012,14 +1024,14 @@ def check_ax_reduce_gvals(obj, obj_x):
     require(torch.allclose(lib, full, rtol=1e-4, atol=1e-4), "CSR yardstick")
     library_ms = cuda_ms(lambda: csr @ gv)
     del csr
-    # bytes: the m gvals and edge_idx at the real entries (the kernel skips
-    # masked ones), the mask over every plan entry, dest_ids per row, the
-    # (m, J) result written once
-    real = sum(int(b.mask.sum()) for b in plan.buckets)
-    entries = sum(b.mask.numel() for b in plan.buckets)
-    prow = sum(b.dest_ids.numel() for b in plan.buckets)
+    # bytes (the launch census's count): the m gvals and edge_idx at the
+    # real entries (the kernel skips masked ones), the mask over every plan
+    # entry, dest_ids per row, the (m, J) result written once
+    from repro_torch.launch import census
+    p = census.plan_counts(plan)
+    real, entries, prow = p.real, p.entries, p.rows
     eg = gv.element_size()
-    nbytes = real * (eg * m + 4) + entries + prow * 4 + m * J * 4
+    nbytes = census.ax_bytes(p, m, J, eg, carry=False)
     bound_ms, bound_by = bound(nbytes, m * real)
     log(f"ax_reduce_plan  one Ax ({len(plan.buckets)} buckets, {real} real "
         f"entries of {entries}; 1 call, 2 CUDA launches): {ms:.4f} ms; plain "
@@ -1218,14 +1230,18 @@ def wide_slab_record(what, slab, lam, g, iters):
         f"their block-order plain versions bit for bit; " + steps_line(
             "its lambda", steps))
     m, J = lam.shape
-    base, real, padded, rows, ea, ec, eu = _slab_bytes([slab], m, J)
+    from repro_torch.launch import census
+    c = census.slab_counts([slab])
+    real, padded, rows, ea, ec, eu = (c.real, c.padded, c.rows, c.ea, c.ec,
+                                      c.eu)
     plains = {"dual_x_slab": lambda: ref.dual_x_ref(*slab[:6], lam, g, iters),
               "dual_grad_slab": lambda: ref.dual_grad_ref(*slab[:6], lam, g,
                                                           iters),
               "proj_boxcut": lambda: ref.proj_boxcut_ref(
                   u, slab.ub, slab.s, slab.mask, iters)}
-    work = {"dual_x_slab": (base + padded * ec, real_ops(real, m, False)),
-            "dual_grad_slab": (base + padded * (ec + ea * m),
+    work = {"dual_x_slab": (census.sweep_bytes(c, m, J),
+                            real_ops(real, m, False)),
+            "dual_grad_slab": (census.sweep_bytes(c, m, J, gvals=True),
                                real_ops(real, m, True)),
             "proj_boxcut": (real * (4 + eu) + padded * (1 + ec) + rows * 4,
                             real * OPS_X)}
@@ -2313,6 +2329,7 @@ def microbatch_records(obj, lam, gamma):
     from repro_torch.core.types import Slab
     from repro_torch.kernels import ref
     from repro_torch.kernels.dual_grad import dual_x_slab
+    from repro_torch.launch import census
     g = torch.full((), gamma, device=lam.device)
     iters = obj.proj_iters
     m, J = lam.shape
@@ -2327,8 +2344,8 @@ def microbatch_records(obj, lam, gamma):
             if n == max(MICROBATCH_ROWS):
                 xr, _, _ = ref.dual_x_ref(*sub[:6], lam, g, iters)
                 err = max(err, float((x - xr).abs().max()))
-            nbytes, real, padded, _, _, ec, _ = _slab_bytes([sub], m, J)
-            nbytes += padded * ec
+            c = census.slab_counts([sub])
+            nbytes, real = census.sweep_bytes(c, m, J), c.real
             steps = bisection_steps([sub], lam, g, iters)
             b_ms, b_by, bytes_ms, issue_ms = steps_bound(
                 nbytes, steps, real_ops(real, m, False), iters)
@@ -2798,6 +2815,306 @@ def serve_phase(out, wide_out):
                  k: v["ax_reduce_plan_x"] for k, v in counts.by_step.items()}})
 
 
+# phase 12: the solve's observability.  The profiled window of the
+# full-width run (its first chunk, its length), and the loop's time outside
+# the evaluation that PERF.md §5 had not split (1.677 - 1.3065 ms)
+OBS_WINDOW = (2, 2)
+UNSPLIT_MS = 0.37
+
+
+def _trace_kind(name):
+    """Which kernel a CUDA kernel event of a torch.profiler trace is: K1
+    (`dual_x_kernel` / `dual_x_wide_kernel` with kGvals false), K3 (true),
+    K2's item launch (`ax_items_kernel` over `XSrc`), K4's (`GSrc`), the
+    Ax second pass, or the sweep's partial sums; demangled or not."""
+    if "dual_x_kernel" in name or "dual_x_wide_kernel" in name:
+        gvals = re.search(r"true>|Lb1E", name) is not None
+        return "dual_grad_slab" if gvals else "dual_x_slab"
+    if "ax_items_kernel" in name:
+        return "ax_items_x" if "XSrc" in name else "ax_items_gvals"
+    for kind in ("sum_items_kernel", "sum_partials_kernel"):
+        if kind in name:
+            return kind
+    return "other"
+
+
+HOOK_RANGES = ("ProfilerHook.prime", "ProfilerHook.drain")
+
+
+def trace_kernels(path):
+    """Of a Chrome trace that `ProfilerHook` exported: launches and device
+    ms by `_trace_kind`, the other kernels' launches and device ms by name
+    (its first 60 characters), largest first, and what the trace lost.
+    The kernels launched inside the hook's opening and closing bursts
+    (`HOOK_RANGES`) count as "hook".  `lost` counts the launches outside
+    the bursts whose kernel is not in the trace, `lost_hook` those inside
+    each burst (how much of its margin an edge took), and `skew_us` is
+    the least time from a launch to its kernel's start on the trace's
+    clock (below 0 when the card's timestamps read early)."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    spans = [(e["name"], e["ts"], e["ts"] + e.get("dur", 0))
+             for e in events if e.get("name") in HOOK_RANGES
+             and e.get("cat") != "gpu_user_annotation"]
+    launches = {e.get("args", {}).get("correlation"): e for e in events
+                if e.get("cat") == "cuda_runtime"
+                and "LaunchKernel" in e.get("name", "")}
+    burst = {c: name for c, e in launches.items()
+             for name, a, b in spans if a <= e["ts"] <= b}
+    hooked = set(burst)
+    counts, ms, other, seen, skew = {}, {}, {}, set(), []
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        name = e.get("name", "")
+        corr = e.get("args", {}).get("correlation")
+        seen.add(corr)
+        if corr in launches:
+            skew.append(e["ts"] - launches[corr]["ts"])
+        kind = "hook" if corr in hooked else _trace_kind(name)
+        counts[kind] = counts.get(kind, 0) + 1
+        ms[kind] = ms.get(kind, 0.0) + e.get("dur", 0) / 1e3
+        if kind == "other":
+            n, t = other.get(name[:60], (0, 0.0))
+            other[name[:60]] = (n + 1, t + e.get("dur", 0) / 1e3)
+    missing = set(launches) - seen
+    lost = {"lost": len(missing - hooked),
+            "lost_hook": {name.split(".")[1]: sum(
+                burst[c] == name for c in missing & hooked)
+                for name in HOOK_RANGES},
+            "skew_us": round(min(skew), 2) if skew else None}
+    return (counts, ms, sorted(other.items(), key=lambda kv: -kv[1][1]),
+            lost)
+
+
+def obs_main(args, out, records, tmp):
+    """Phase 12 (a): phase 3's objective solved twice in turn, bare and
+    with a run log, a memory sampler and a profiler over chunks 2-3: the
+    same bits, the log valid, the trace's kernels equal to the launch
+    counters over the window, the peak HBM between the census's argument
+    bytes and the allocator's peak, the census's K1 and K2 bytes phase
+    4's."""
+    import numpy as np
+    import torch
+    from repro_torch.core import Maximizer
+    from repro_torch.launch import census, report, solve
+    from repro_torch.obs import (MemorySampler, ProfilerHook, Telemetry,
+                                 load_run, validate_run)
+    obj, dev = out.objective, out.lam.device
+    cfg, crit = solve.solve_config(args)
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    def timed(**hooks):
+        snaps = []
+        reset_counters()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        res = Maximizer(cfg).maximize(
+            obj, criteria=crit, diagnostics_fn=lambda rec: snaps.append(
+                read_counters()), **hooks)
+        torch.cuda.synchronize(dev)
+        return res, time.perf_counter() - t0, snaps
+
+    bare, t_bare, _ = timed()
+
+    def recorded(name, profiler=None):
+        path = os.path.join(tmp, f"{name}.jsonl")
+        tel = Telemetry.jsonl(path, stream=open(os.devnull, "w"))
+        res, dt, snaps = timed(telemetry=tel, profiler=profiler,
+                               sampler=MemorySampler(telemetry=tel,
+                                                     device=dev))
+        tel.close()
+        return res, dt, snaps, path
+
+    seen, t_seen, _, path = recorded("main")
+    prof = ProfilerHook(os.path.join(tmp, "trace_main"),
+                        start_chunk=OBS_WINDOW[0], num_chunks=OBS_WINDOW[1])
+    profiled, t_prof, snaps, path_prof = recorded("main_profiled", prof)
+    iters = bare.iterations_run
+
+    def same(res):
+        return (torch.equal(bare.lam, res.lam)
+                and iters == res.iterations_run
+                and bare.stop_reason == res.stop_reason
+                and all(np.array_equal(a, b)
+                        for a, b in zip(bare.stats, res.stats)))
+
+    dual = float(bare.stats.dual_obj[-1])
+    log(f"obs (a) main path, phase 3's objective, ms/iteration in turn: "
+        f"bare {t_bare / iters * 1e3:.3f} ({iters} iterations, "
+        f"{t_bare:.3f} s); run log + sampler {t_seen / iters * 1e3:.3f} "
+        f"({t_seen / t_bare - 1:+.2%}); run log + sampler + profiler over "
+        f"chunks {OBS_WINDOW[0]}-{OBS_WINDOW[0] + OBS_WINDOW[1] - 1} "
+        f"{t_prof / iters * 1e3:.3f} ({t_prof / t_bare - 1:+.2%}); bit for "
+        f"bit {same(seen)}, {same(profiled)}; stop {seen.stop_reason.value}, "
+        f"final dual {dual!r}")
+    require(same(seen) and same(profiled),
+            "obs: an observed solve differs from the bare one")
+    require(iters == out.result["iterations_run"]
+            and dual == out.result["dual_obj_final"],
+            f"obs: {iters} iterations, dual {dual!r}, not phase 3's")
+    validate_run(path_prof)
+    run = validate_run(path)
+    checks = run.by_type("check")
+    require([c["it"] for c in checks] == [d.it for d in seen.diagnostics],
+            "obs: check events do not mirror the diagnostics")
+    summary = report.summarize(run)
+    rows = [summary["chunks"][k] for k in sorted(summary["chunks"], key=int)]
+    execute = [r["execute"] * 1e3 for r in rows]
+    host = [r["host"] * 1e3 for r in rows]
+    in_spans = (sum(execute) + sum(host)) / iters
+    log(f"obs (a) report.summarize: {len(rows)} chunks, {len(checks)} check "
+        f"events; execute ms a chunk {[round(v, 3) for v in execute]}; host "
+        f"ms a chunk {[round(v, 4) for v in host]}")
+    log(f"obs (a) an iteration: execute {sum(execute) / iters:.4f} ms, host "
+        f"{sum(host) / iters:.4f} ms, the rest of the loop "
+        f"{t_seen / iters * 1e3 - in_spans:.4f} ms (bare run "
+        f"{t_bare / iters * 1e3:.4f} ms in all; the unsplit share was "
+        f"~{UNSPLIT_MS} ms, PERF.md §5)")
+    first, n = OBS_WINDOW
+    window = {k: snaps[first + n - 1][k] - snaps[first - 1][k]
+              for k in ("dual_x_slab", "ax_reduce_plan_x")}
+    counts, ms, other, lost = trace_kernels(prof.trace_paths[0])
+    busy = sum(v for k, v in ms.items() if k != "hook")
+    prof_chunks = report.summarize(load_run(path_prof))["chunks"]
+    win_exec = sum(prof_chunks[str(c)]["execute"] * 1e3
+                   for c in range(first, first + n))
+    win_iters = n * crit.check_every     # the window's chunks are whole
+    log(f"obs (a) trace {os.path.basename(prof.trace_paths[0])}: kernel "
+        f"launches {counts}; launch counters over the window {window}; "
+        f"lost from the trace {lost}; "
+        f"device busy {busy:.3f} ms of the window's execute spans "
+        f"{win_exec:.3f} ms (idle share {1 - busy / win_exec:.4f}, under "
+        f"the profiler, the hook's bursts aside); device ms an "
+        f"iteration by kind "
+        f"{ {k: round(v / win_iters, 4) for k, v in ms.items() if k != 'hook'} }")
+    log(f"obs (a) the other kernels, an iteration (launches, device ms): "
+        + "; ".join(f"{name} {cnt / win_iters:.2f}, {t / win_iters:.4f}"
+                    for name, (cnt, t) in other[:8]))
+    require(counts.get("dual_x_slab", 0) == window["dual_x_slab"] > 0,
+            f"obs: the trace's K1 launches {counts.get('dual_x_slab', 0)} "
+            f"are not the counters' {window['dual_x_slab']} (lost {lost})")
+    second = window["ax_reduce_plan_x"] if obj._work.multi.shape[0] else 0
+    require(counts.get("ax_items_x", 0) == window["ax_reduce_plan_x"] > 0
+            and counts.get("sum_items_kernel", 0) == second,
+            f"obs: the trace's K2 launches (the items, then the second "
+            f"pass) {counts} are not the counters' {window} (lost {lost})")
+    est = [e for e in run.by_type("event")
+           if e.get("kind") == "compiled_memory"]
+    man = run.manifest
+    peak = torch.cuda.max_memory_allocated(dev)
+    log(f"obs (a) memory: manifest peak_hbm_bytes {man['peak_hbm_bytes']}, "
+        f"peak_rss_bytes {man['peak_rss_bytes']}, compiled_peak_bytes "
+        f"{man['compiled_peak_bytes']} (estimates {est}); "
+        f"max_memory_allocated {peak}")
+    require(all(e["argument_bytes"] <= man["peak_hbm_bytes"] <= peak
+                for e in est) and est,
+            "obs: peak_hbm_bytes outside [census argument bytes, "
+            "max_memory_allocated]")
+    cen = census.evaluation_census(obj)
+    k = cen["kernels"]
+    log(f"obs (a) census of one evaluation: {cen['bytes_per_iteration']} "
+        f"bytes ({cen['bytes_per_iteration'] / HBM_BYTES_PER_S * 1e3:.4f} "
+        f"ms at 3.35 TB/s), {cen['flops_per_iteration']} float32 operations "
+        f"at the fixed count, {cen['collective_bytes_per_iteration']} "
+        f"collective bytes; by kernel "
+        f"{ {name: v['bytes'] for name, v in k.items()} }")
+    for name in ("dual_x_slab", "ax_reduce_plan_x"):
+        require(k[name]["bytes"] == records[name]["bytes"],
+                f"obs: the census's {name} bytes {k[name]['bytes']} are not "
+                f"phase 4's {records[name]['bytes']}")
+    log("obs (a) the census's K1 and K2 bytes equal phase 4's")
+
+
+def obs_cli(tmp):
+    """Phase 12 (b): the wide cell through the CLI's main with every
+    observability flag; its census in aligned_gvals names K3 and K4."""
+    import contextlib
+    import io
+    from repro_torch.launch import report, solve
+    from repro_torch.obs import load_run, validate_run
+    path = os.path.join(tmp, "wide.jsonl")
+    argv = WIDE_ARGS + ["--certify", "--log-jsonl", path, "--profile-dir",
+                        os.path.join(tmp, "trace_wide"), "--metrics-port",
+                        "0", "--max-host-rss-mb", "1"]
+    stdout, stderr = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(stdout), contextlib.redirect_stderr(stderr):
+        solve.main(argv)
+    lines = stdout.getvalue().strip().splitlines()
+    require(len(lines) == 1, f"obs (b): stdout is not one object: {lines}")
+    result = json.loads(lines[0])
+    run = validate_run(path)
+    guard = [e for e in run.by_type("memory") if e.get("reason") == "rss_guard"]
+    series = run.by_type("metrics")[-1]["series"]
+    mem = sorted(s for s in series if s.startswith("repro_memory_"))
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        rc = report.main([path])
+    log(f"obs (b) wide cell through the CLI: {result['iterations_run']} "
+        f"iterations, certificate valid {result.get('certificate_valid')}, "
+        f"peak_rss_bytes {result.get('peak_rss_bytes')}, peak_hbm_bytes "
+        f"{result.get('peak_hbm_bytes')}; rss guard {len(guard)} event(s), "
+        f"{stderr.getvalue().count('exceeds --max-host-rss-mb')} warning(s); "
+        f"report rc {rc} ({len(text.getvalue().splitlines())} lines); "
+        f"metrics {mem}; byte_census "
+        f"{run.manifest['byte_census']['bytes_per_iteration']} bytes")
+    require(result.get("peak_rss_bytes") and result.get("peak_hbm_bytes"),
+            "obs (b): the result lacks its peaks")
+    require(len(guard) == 1 and stderr.getvalue().count(
+        "exceeds --max-host-rss-mb") == 1, "obs (b): the guard did not "
+            "fire exactly once")
+    require(rc == 0, "obs (b): report.main failed on the CLI's log")
+    require("repro_memory_host_rss_bytes" in mem
+            and "repro_memory_device_peak_bytes" in mem,
+            "obs (b): the metrics digest lacks the memory series")
+    path_g = os.path.join(tmp, "wide_gvals.jsonl")
+    with contextlib.redirect_stdout(io.StringIO()), \
+            contextlib.redirect_stderr(io.StringIO()):
+        solve.main(WIDE_ARGS + ["--ax-mode", "aligned_gvals", "--iterations",
+                                "25", "--log-jsonl", path_g])
+    kernels = list(load_run(path_g).manifest["byte_census"]["kernels"])
+    log(f"obs (b) aligned_gvals census kernels: {kernels}")
+    require("dual_grad_slab" in kernels and "ax_reduce_plan" in kernels,
+            "obs (b): the aligned_gvals census does not name K3 and K4")
+
+
+def obs_failing(args, out, tmp):
+    """Phase 12 (c): a NaN objective (phase 8's) with a profiler window
+    open stops DIVERGED and still leaves its trace."""
+    import torch
+    from repro_torch.core import HealthConfig, Maximizer, StopReason
+    from repro_torch.launch import solve
+    from repro_torch.obs import ProfilerHook
+    from repro_torch.testing import NaNInjectingObjective
+    cfg, crit = solve.solve_config(args)
+    health = HealthConfig(max_retries=3)
+    # the window opens at the last retry's chunk and is still open when
+    # the solve gives up: the engine's finally block writes the trace
+    prof = ProfilerHook(os.path.join(tmp, "trace_nan"),
+                        start_chunk=health.max_retries, num_chunks=2)
+    res = Maximizer(cfg).maximize(NaNInjectingObjective(out.objective),
+                                  criteria=crit, health=health,
+                                  profiler=prof)
+    size = (os.path.getsize(prof.trace_paths[0]) if prof.trace_paths
+            else 0)
+    log(f"obs (c) NaN objective under a profiler window: "
+        f"{res.stop_reason.value} after {len(res.health)} health records; "
+        f"trace {prof.trace_paths} ({size} bytes)")
+    require(res.stop_reason == StopReason.DIVERGED and size > 0
+            and len(res.health) == health.max_retries + 1
+            and bool(torch.isfinite(res.lam).all()),
+            "obs (c): the failing run left no trace or did not diverge")
+
+
+def obs_phase(args, out, records):
+    """Phase 12: (a), (b), (c) in a temporary directory."""
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="obs_") as tmp:
+        obs_main(args, out, records, tmp)
+        obs_cli(tmp)
+        obs_failing(args, out, tmp)
+
+
 def reset_counters():
     for fn in WRAPPERS.values():
         fn.launches = 0
@@ -3037,6 +3354,14 @@ def main() -> int:
     records["ax_reduce_plan_x"].update(k2_serve)
     del wide_out
     log(f"phase 11 (serve): {time.perf_counter() - t_serve:.1f} s")
+
+    # 12. the solve's observability: phase 3's objective with a run log, a
+    # sampler and a profiler window; the wide cell through the CLI's flags;
+    # a failing run's trace (before phase 10, which frees phase 3's)
+    t_obs = time.perf_counter()
+    obs_phase(args, out, records)
+    torch.cuda.empty_cache()
+    log(f"phase 12 (obs): {time.perf_counter() - t_obs:.1f} s")
     single_main = (out.result, out.lam, out.solve_seconds)
     del out
     torch.cuda.empty_cache()

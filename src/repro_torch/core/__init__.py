@@ -6,6 +6,8 @@
   ProjectionMap                      each slab's projection kind and steps
   solve_distributed(lp, cfg, grid)   the same solve over torch.distributed
                                      ranks (one all-reduce a step)
+  baseline_numpy                     the pure-numpy CPU solver, the parity
+                                     and speed baseline (not imported here)
 """
 from .types import (AxBucket, AxPlan, ConvergenceCheck, HealthConfig,
                     IterStats, LPData, Slab, SolveConfig, SolveResult,

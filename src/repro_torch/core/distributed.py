@@ -331,12 +331,20 @@ class DistributedMatchingObjective:
               checkpoint_fn: Optional[Callable] = None,
               preempt_fn: Optional[Callable] = None,
               initial_state: Optional[SolveState] = None,
-              resume_meta: Optional[dict] = None) -> SolveResult:
+              resume_meta: Optional[dict] = None,
+              telemetry=None, profiler=None, sampler=None) -> SolveResult:
         """The port's `maximize` over this objective on every rank.
         `lam0` and `initial_state` are whole, `initial_state` on this
         rank's device (every rank keeps its part);
         `checkpoint_fn` gets the whole state, and the result's λ and final
-        state are whole."""
+        state are whole.  Rank 0 alone records: every other rank runs with
+        the telemetry disabled, no sampler (it reads the host only and
+        makes no collective) and, where a profiler is given, one that
+        records nothing but chunks the loop as rank 0's does; give every
+        rank the same `profiler` or none."""
+        if dist.is_initialized() and dist.get_rank() != 0:
+            telemetry = sampler = None
+            profiler = None if profiler is None else _Unrecorded()
         device = self.lp.b.device
         lam0 = (torch.zeros(self._full_shape, dtype=torch.float32,
                             device=device) if lam0 is None
@@ -354,11 +362,28 @@ class DistributedMatchingObjective:
                        health=health, checkpoint_fn=checkpoint,
                        preempt_fn=preempt_fn, initial_state=initial_state,
                        resume_meta=resume_meta, reduce=self.dual_reduce,
-                       agree=self.agree if self.world > 1 else None)
+                       agree=self.agree if self.world > 1 else None,
+                       telemetry=telemetry, profiler=profiler,
+                       sampler=sampler)
         final = res.final_state
         return res._replace(
             lam=self.gather_lam(res.lam),
             final_state=None if final is None else self.gather_state(final))
+
+
+class _Unrecorded:
+    """A profiler for the ranks other than 0: a profiler makes the engine
+    run chunked, and every rank must chunk alike or their chunk-boundary
+    collectives would not pair up; this one records nothing."""
+
+    def chunk_start(self, *args, **kw):
+        pass
+
+    def chunk_end(self, *args, **kw):
+        pass
+
+    def stop(self, *args, **kw):
+        pass
 
 
 def solve_distributed(
@@ -378,6 +403,9 @@ def solve_distributed(
     initial_state: Optional[SolveState] = None,
     resume_meta: Optional[dict] = None,
     device=None,
+    telemetry=None,
+    profiler=None,
+    sampler=None,
 ) -> SolveResult:
     """End-to-end distributed solve on every rank of `grid`: place the
     data, build the objective, maximize (`DistributedMatchingObjective` and
@@ -385,11 +413,13 @@ def solve_distributed(
     does for the certificate, takes the two steps itself).  `lp` is the
     whole LP on the host (each rank's copy); `source_axes` defaults to
     every axis of the grid (the paper partitions sources over every GPU);
-    `device` to the LP's.  The result's λ and final state are whole."""
+    `device` to the LP's.  The result's λ and final state are whole.
+    `telemetry`, `profiler` and `sampler` record on rank 0 alone."""
     obj = DistributedMatchingObjective(
         lp, grid, source_axes=source_axes, proj_kind=config.projection,
         lambda_axis=lambda_axis, ax_mode=ax_mode, device=device)
     return obj.solve(config, algorithm, lam0=lam0, criteria=criteria,
                      diagnostics_fn=diagnostics_fn, health=health,
                      checkpoint_fn=checkpoint_fn, preempt_fn=preempt_fn,
-                     initial_state=initial_state, resume_meta=resume_meta)
+                     initial_state=initial_state, resume_meta=resume_meta,
+                     telemetry=telemetry, profiler=profiler, sampler=sampler)

@@ -17,8 +17,18 @@ finiteness flag per `rule.health_arrays` tensor, appended to the same
 stats copy (a chunk still makes one host read).  A bad chunk rolls back
 to the last good snapshot and retries with backed-off steps; exhausted
 retries stop DIVERGED.  `checkpoint_fn`, `preempt_fn`, `initial_state`
-and `resume_meta` give checkpoint/resume.  Telemetry, the profiler and
-the memory sampler are not ported yet (ROADMAP queue A item 14).
+and `resume_meta` give checkpoint/resume.
+
+Observability (DESIGN.md §11, §13): a `Telemetry` gets the reference's
+records (solve_start/solve_end, an `execute` and a `host` span a chunk,
+check/gamma/health/checkpoint/memory events, the chunk, iteration and
+rollback counters); a `ProfilerHook` traces a window of chunks; a
+`MemorySampler` is read at every chunk boundary.  A chunk is enqueued
+eagerly, so with a recording telemetry the `execute` span waits for the
+card (one `torch.cuda.synchronize` a chunk) and the `host` span then
+times the stats copy alone.  With the defaults (telemetry disabled, no
+sampler, no profiler) the engine makes no extra sync, host read or
+event, and every hook leaves the trajectory bit for bit as it was.
 
 Under several ranks (`core.distributed`) every rank runs this loop, and
 every host decision must come out the same on each, or the next
@@ -38,6 +48,7 @@ from typing import Callable, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..obs.telemetry import Telemetry
 from .types import (ConvergenceCheck, HealthConfig, HealthRecord, IterStats,
                     SolveConfig, SolveResult, SolveState, StopReason,
                     StoppingCriteria)
@@ -96,6 +107,12 @@ def _to_host(stats: torch.Tensor,
             bool(host[n:].all()))
 
 
+def _sync(dev: torch.device) -> None:
+    """Wait for the card's work (nothing to wait for on the CPU)."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
 class SolveEngine:
     """The one convergence-controlled solve loop (DESIGN.md §4)."""
 
@@ -116,6 +133,26 @@ class SolveEngine:
         # chunk as `hook(it_start, state, stats) -> (state, stats)` with the
         # chunk's stats still on the device.  Never set in production.
         self.chunk_fault_hook = None
+        # the chunk lengths whose memory estimate went out (the reference
+        # builds one runner a length; eager PyTorch has none to build)
+        self._estimated = set()
+
+    def _note_runner(self, length: int, state: SolveState, tel: Telemetry,
+                     sampler) -> None:
+        """Once a distinct chunk length, with a sampler: the runner's
+        memory estimate from the launch census (tensor shapes only, no
+        device read), folded into the run's peak and emitted as the
+        reference's `compiled_memory` event."""
+        if sampler is None or length in self._estimated:
+            return
+        self._estimated.add(length)
+        from ..obs.memory import compiled_memory_estimate
+        est = compiled_memory_estimate(
+            getattr(self.calculate, "__self__", None), state, length)
+        if est:
+            sampler.note_compiled(est)
+            tel.event("event", kind="compiled_memory", chunk_len=length,
+                      **est)
 
     def _run_chunk(self, state: SolveState, length: int,
                    gamma: Optional[torch.Tensor]):
@@ -146,7 +183,9 @@ class SolveEngine:
               checkpoint_fn: Optional[Callable] = None,
               preempt_fn: Optional[Callable] = None,
               initial_state: Optional[SolveState] = None,
-              resume_meta: Optional[dict] = None) -> SolveResult:
+              resume_meta: Optional[dict] = None,
+              telemetry: Optional[Telemetry] = None,
+              profiler=None, sampler=None) -> SolveResult:
         """Run the solve loop.  Beyond the criteria and diagnostics:
 
           health         HealthConfig: the per-chunk guard (rollback with
@@ -158,14 +197,26 @@ class SolveEngine:
                          True stops the loop PREEMPTED;
           initial_state  a restored SolveState: the loop continues from
                          state.it, bit for bit the uninterrupted run;
-          resume_meta    the checkpoint's meta ("gamma_now", "g_prev").
+          resume_meta    the checkpoint's meta ("gamma_now", "g_prev");
+          telemetry      a `repro_torch.obs.Telemetry` (module doc);
+                         None is `Telemetry.disabled()`;
+          profiler       a `repro_torch.obs.ProfilerHook`, stopped in a
+                         finally block, so an aborted solve still writes
+                         its trace;
+          sampler        a `repro_torch.obs.MemorySampler`: one `memory`
+                         event a chunk boundary, the per-runner estimate
+                         once a chunk length, the watermarks in the
+                         manifest at the end.
 
-        Any of health/checkpoint_fn/preempt_fn/initial_state forces the
-        chunked path.  Under several ranks (`agree` set), the preempt
+        Any of health/checkpoint_fn/preempt_fn/initial_state/profiler
+        forces the chunked path (the profiler's window is counted in
+        chunks; the reference's engine ignores a profiler on its fast
+        path).  Under several ranks (`agree` set), the preempt
         poll, the wall-clock cap and the finiteness flags are made common
         at each chunk boundary by one collective; the preempt poll then
         stops the loop at the next boundary."""
         config = self.config
+        tel = telemetry if telemetry is not None else Telemetry.disabled()
         total = config.iterations
         if criteria is not None and criteria.max_iterations is not None:
             total = criteria.max_iterations
@@ -173,7 +224,8 @@ class SolveEngine:
                     and config.gamma_init is not None
                     and config.gamma_init > config.gamma)
         guarded = (health is not None or checkpoint_fn is not None
-                   or preempt_fn is not None or initial_state is not None)
+                   or preempt_fn is not None or initial_state is not None
+                   or profiler is not None)
         chunked = guarded or (total > 0 and (
             adaptive or (criteria is not None and criteria.needs_checks)))
         if initial_state is not None:
@@ -182,10 +234,36 @@ class SolveEngine:
         else:
             state = self.rule.init_state(lam0, config)
             dev = lam0.device
+        if tel.enabled:
+            tel.event("solve_start", algorithm=self.algorithm,
+                      iterations_cap=total, chunked=chunked,
+                      start_it=(int(initial_state.it)
+                                if initial_state is not None else 0),
+                      gamma=config.gamma, gamma_init=config.gamma_init,
+                      adaptive_continuation=adaptive)
 
         if not chunked:
-            state, stats = self._run_chunk(state, total, None)
-            return SolveResult(lam=state.lam, stats=_to_host(stats, ())[0],
+            # one chunk of the full count, no host read until its end
+            t0 = time.perf_counter()
+            self._note_runner(total, state, tel, sampler)
+            with tel.span("execute", chunk=0, it=0, n=total):
+                state, stats = self._run_chunk(state, total, None)
+                if tel.enabled:
+                    _sync(dev)
+            stats = _to_host(stats, ())[0]
+            tel.counter("solve.chunks")
+            tel.counter("solve.iterations", total)
+            if sampler is not None:
+                s = sampler.sample(where="solve", it=total)
+                tel.event("memory", it=total, chunk=0,
+                          **sampler.event_fields(s))
+                tel.manifest(**sampler.watermarks())
+            tel.event("solve_end",
+                      stop_reason=StopReason.MAX_ITERATIONS.value,
+                      iterations_run=total, converged=False,
+                      wall_s=time.perf_counter() - t0, checks=0,
+                      health_incidents=0)
+            return SolveResult(lam=state.lam, stats=stats,
                                iterations_run=total, converged=False,
                                stop_reason=StopReason.MAX_ITERATIONS,
                                final_state=state)
@@ -231,112 +309,165 @@ class SolveEngine:
         # (here at the start, before any chunk has run)
         preempt_agreed = (agree([_polled(), False, False])[0]
                           if agree is not None else False)
-        while it_done < total:
-            if preempt_agreed if agree is not None else _polled():
-                stop_reason = StopReason.PREEMPTED
-                break
-            n = min(check, total - it_done)
-            gamma_arr = (torch.full((), gamma_now, dtype=torch.float32,
-                                    device=dev) if adaptive else None)
-            state, dev_stats = self._run_chunk(state, n, gamma_arr)
-            if self.chunk_fault_hook is not None:
-                state, st = self.chunk_fault_hook(it_done, state,
-                                                  IterStats(*dev_stats))
-                dev_stats = torch.stack(list(st))
-            stats, arrays_finite = _to_host(
-                dev_stats, self.rule.health_arrays(state) if sweep else ())
-            g = float(stats.dual_obj[-1])
-            infeas = float(stats.infeas[-1])
-            grad_norm = float(stats.grad_norm[-1])
-            gamma_cur = float(stats.gamma[-1])
-            elapsed = time.perf_counter() - t0
-            out_of_time = (criteria.max_seconds is not None
-                           and elapsed >= criteria.max_seconds)
-            if agree is not None:
-                preempt_agreed, out_of_time, nonfinite = agree(
-                    [_polled(), out_of_time, not arrays_finite])
-                arrays_finite = not nonfinite
+        chunk_idx = 0
+        try:
+            while it_done < total:
+                if preempt_agreed if agree is not None else _polled():
+                    stop_reason = StopReason.PREEMPTED
+                    break
+                n = min(check, total - it_done)
+                gamma_arr = (torch.full((), gamma_now, dtype=torch.float32,
+                                        device=dev) if adaptive else None)
+                self._note_runner(n, state, tel, sampler)
+                if profiler is not None:
+                    profiler.chunk_start(chunk_idx, tel, device=dev)
+                with tel.span("execute", chunk=chunk_idx, it=it_done, n=n):
+                    state, dev_stats = self._run_chunk(state, n, gamma_arr)
+                    if tel.enabled:
+                        # the chunk is enqueued eagerly: wait here so the
+                        # span measures the card's work, not the enqueue
+                        _sync(dev)
+                if self.chunk_fault_hook is not None:
+                    state, st = self.chunk_fault_hook(it_done, state,
+                                                      IterStats(*dev_stats))
+                    dev_stats = torch.stack(list(st))
+                # the chunk's one device-to-host copy
+                with tel.span("host", chunk=chunk_idx, it=it_done):
+                    stats, arrays_finite = _to_host(
+                        dev_stats,
+                        self.rule.health_arrays(state) if sweep else ())
+                g = float(stats.dual_obj[-1])
+                infeas = float(stats.infeas[-1])
+                grad_norm = float(stats.grad_norm[-1])
+                gamma_cur = float(stats.gamma[-1])
+                elapsed = time.perf_counter() - t0
+                if profiler is not None:
+                    profiler.chunk_end(chunk_idx, tel)
+                if sampler is not None:
+                    # host-only reads at the chunk boundary, no collective
+                    s = sampler.sample(where="chunk", it=it_done + n)
+                    tel.event("memory", it=it_done + n, chunk=chunk_idx,
+                              **sampler.event_fields(s))
+                chunk_idx += 1
+                tel.counter("solve.chunks")
+                out_of_time = (criteria.max_seconds is not None
+                               and elapsed >= criteria.max_seconds)
+                if agree is not None:
+                    preempt_agreed, out_of_time, nonfinite = agree(
+                        [_polled(), out_of_time, not arrays_finite])
+                    arrays_finite = not nonfinite
 
-            if health is not None:
-                status = _classify_chunk(health, arrays_finite, g, infeas,
-                                         grad_norm, gamma_cur, snap_g,
-                                         snap_grad, snap_gamma)
-                if status is not None:
-                    fails += 1
-                    scale = health.step_backoff ** fails
-                    action = ("giveup" if fails > health.max_retries
-                              else "rollback")
-                    health_recs.append(HealthRecord(
-                        it=it_done + n, status=status, action=action,
-                        retries=fails, dual_obj=g, grad_norm=grad_norm,
-                        gamma=gamma_cur, rolled_back_to=snap_it,
-                        step_scale=scale))
-                    if action == "giveup":
-                        state = _copy_state(snap)
-                        gamma_now = snap_gamma_now
+                if health is not None:
+                    status = _classify_chunk(health, arrays_finite, g,
+                                             infeas, grad_norm, gamma_cur,
+                                             snap_g, snap_grad, snap_gamma)
+                    if status is not None:
+                        fails += 1
+                        scale = health.step_backoff ** fails
+                        action = ("giveup" if fails > health.max_retries
+                                  else "rollback")
+                        rec = HealthRecord(
+                            it=it_done + n, status=status, action=action,
+                            retries=fails, dual_obj=g, grad_norm=grad_norm,
+                            gamma=gamma_cur, rolled_back_to=snap_it,
+                            step_scale=scale)
+                        health_recs.append(rec)
+                        tel.event("health", **rec._asdict())
+                        if action == "giveup":
+                            state = _copy_state(snap)
+                            gamma_now = snap_gamma_now
+                            g_prev = snap_g_prev
+                            stop_reason = StopReason.DIVERGED
+                            break
+                        tel.counter("solve.rollbacks")
+                        state = self.rule.apply_backoff(
+                            _copy_state(snap), config, snap_gamma_now, scale)
+                        if adaptive:
+                            # retry under heavier regularization; the stall
+                            # decay walks γ back down afterwards
+                            boosted = min(
+                                snap_gamma_now * health.gamma_backoff ** fails,
+                                float(config.gamma_init))
+                            if boosted != gamma_now:
+                                tel.event("gamma", it=it_done,
+                                          gamma_from=gamma_now,
+                                          gamma_to=boosted,
+                                          reason="health_backoff")
+                            gamma_now = boosted
                         g_prev = snap_g_prev
-                        stop_reason = StopReason.DIVERGED
-                        break
-                    state = self.rule.apply_backoff(
-                        _copy_state(snap), config, snap_gamma_now, scale)
-                    if adaptive:
-                        # retry under heavier regularization; the stall
-                        # decay walks γ back down afterwards
-                        gamma_now = min(
-                            snap_gamma_now * health.gamma_backoff ** fails,
-                            float(config.gamma_init))
-                    g_prev = snap_g_prev
-                    # the bad chunk's stats are dropped; the iteration
-                    # counter never advanced, so the γ schedule rewinds too
-                    continue
-                fails = 0
+                        # the bad chunk's stats are dropped; the iteration
+                        # counter never advanced, so the γ schedule rewinds
+                        continue
+                    fails = 0
 
-            it_done += n
-            stats_chunks.append(stats)
-            if g_prev is None:
-                rel_dual = (abs(g - float(stats.dual_obj[0]))
-                            / max(1.0, abs(g)) if n > 1 else float("inf"))
-            else:
-                rel_dual = abs(g - g_prev) / max(1.0, abs(g))
-            g_prev = g
+                it_done += n
+                tel.counter("solve.iterations", n)
+                stats_chunks.append(stats)
+                if g_prev is None:
+                    rel_dual = (abs(g - float(stats.dual_obj[0]))
+                                / max(1.0, abs(g)) if n > 1
+                                else float("inf"))
+                else:
+                    rel_dual = abs(g - g_prev) / max(1.0, abs(g))
+                g_prev = g
 
-            at_target = gamma_cur <= config.gamma * (1.0 + 1e-6)
-            stalled = rel_dual < config.gamma_stall_tol
-            if adaptive and not at_target and stalled:
-                gamma_now = max(gamma_now * config.gamma_decay_rate,
-                                config.gamma)
-            rec = ConvergenceCheck(it=it_done, dual_obj=g, rel_dual=rel_dual,
-                                   infeas=infeas, grad_norm=grad_norm,
-                                   gamma=gamma_cur, elapsed=elapsed,
-                                   stalled=stalled)
-            diags.append(rec)
-            if diagnostics_fn is not None:
-                diagnostics_fn(rec)
-            if health is not None:
-                snap = _copy_state(state)
-                snap_it = it_done
-                snap_gamma_now = gamma_now
-                snap_g_prev = g_prev
-                snap_g, snap_grad, snap_gamma = g, grad_norm, gamma_cur
-            if checkpoint_fn is not None:
-                checkpoint_fn(it_done, state, _meta(final=False))
-            # tolerances count only once γ has reached its target
-            if at_target and criteria.satisfied(rel_dual, infeas, grad_norm,
-                                                infeas_scale):
-                converged = True
-                stop_reason = StopReason.CONVERGED
-                break
-            if out_of_time:
-                stop_reason = StopReason.MAX_SECONDS
-                break
+                at_target = gamma_cur <= config.gamma * (1.0 + 1e-6)
+                stalled = rel_dual < config.gamma_stall_tol
+                if adaptive and not at_target and stalled:
+                    decayed = max(gamma_now * config.gamma_decay_rate,
+                                  config.gamma)
+                    if decayed != gamma_now:
+                        tel.event("gamma", it=it_done, gamma_from=gamma_now,
+                                  gamma_to=decayed, reason="stall_decay")
+                    gamma_now = decayed
+                rec = ConvergenceCheck(it=it_done, dual_obj=g,
+                                       rel_dual=rel_dual, infeas=infeas,
+                                       grad_norm=grad_norm, gamma=gamma_cur,
+                                       elapsed=elapsed, stalled=stalled)
+                diags.append(rec)
+                tel.event("check", **rec._asdict())
+                if diagnostics_fn is not None:
+                    diagnostics_fn(rec)
+                if health is not None:
+                    snap = _copy_state(state)
+                    snap_it = it_done
+                    snap_gamma_now = gamma_now
+                    snap_g_prev = g_prev
+                    snap_g, snap_grad, snap_gamma = g, grad_norm, gamma_cur
+                if checkpoint_fn is not None:
+                    with tel.span("checkpoint", it=it_done):
+                        checkpoint_fn(it_done, state, _meta(final=False))
+                    tel.event("checkpoint", it=it_done, final=False)
+                # tolerances count only once γ has reached its target
+                if at_target and criteria.satisfied(rel_dual, infeas,
+                                                    grad_norm, infeas_scale):
+                    converged = True
+                    stop_reason = StopReason.CONVERGED
+                    break
+                if out_of_time:
+                    stop_reason = StopReason.MAX_SECONDS
+                    break
+        finally:
+            if profiler is not None:
+                # a solve that raises, diverges or is preempted mid-window
+                # still writes its trace
+                profiler.stop(tel)
 
         if checkpoint_fn is not None:
-            checkpoint_fn(it_done, state, _meta(final=True))
+            with tel.span("checkpoint", it=it_done):
+                checkpoint_fn(it_done, state, _meta(final=True))
+            tel.event("checkpoint", it=it_done, final=True)
         if stats_chunks:
             stats = IterStats(*(np.concatenate(f) for f in zip(*stats_chunks)))
         else:
             stats = IterStats(*(np.zeros((0,), np.float32)
                                 for _ in IterStats._fields))
+        if sampler is not None:
+            tel.manifest(**sampler.watermarks())
+        tel.event("solve_end", stop_reason=stop_reason.value,
+                  iterations_run=it_done, converged=converged,
+                  wall_s=time.perf_counter() - t0, checks=len(diags),
+                  health_incidents=len(health_recs))
         return SolveResult(lam=state.lam, stats=stats, iterations_run=it_done,
                            converged=converged, stop_reason=stop_reason,
                            diagnostics=tuple(diags),
@@ -364,15 +495,19 @@ def maximize(calculate: Callable, lam0: torch.Tensor, config: SolveConfig,
              initial_state: Optional[SolveState] = None,
              resume_meta: Optional[dict] = None,
              reduce: DualReduce = LOCAL,
-             agree: Optional[Callable] = None) -> SolveResult:
+             agree: Optional[Callable] = None,
+             telemetry: Optional[Telemetry] = None,
+             profiler=None, sampler=None) -> SolveResult:
     """Thin wrapper over SolveEngine: fixed-length with no `criteria`,
-    tolerance-terminated with them; the fault-tolerance hooks and the
-    ranks' `reduce` and `agree` pass through."""
+    tolerance-terminated with them; the fault-tolerance hooks, the ranks'
+    `reduce` and `agree` and the telemetry, profiler and sampler hooks
+    pass through."""
     return SolveEngine(calculate, config, algorithm, reduce, agree).solve(
         lam0, criteria=criteria, diagnostics_fn=diagnostics_fn,
         infeas_scale=infeas_scale, health=health,
         checkpoint_fn=checkpoint_fn, preempt_fn=preempt_fn,
-        initial_state=initial_state, resume_meta=resume_meta)
+        initial_state=initial_state, resume_meta=resume_meta,
+        telemetry=telemetry, profiler=profiler, sampler=sampler)
 
 
 class Maximizer:
@@ -396,7 +531,9 @@ class Maximizer:
                  checkpoint_fn: Optional[Callable] = None,
                  preempt_fn: Optional[Callable] = None,
                  initial_state: Optional[SolveState] = None,
-                 resume_meta: Optional[dict] = None) -> SolveResult:
+                 resume_meta: Optional[dict] = None,
+                 telemetry: Optional[Telemetry] = None,
+                 profiler=None, sampler=None) -> SolveResult:
         if initial_value is None and initial_state is None:
             initial_value = torch.zeros(obj.dual_shape, dtype=torch.float32,
                                         device=obj.lp.b.device)
@@ -406,4 +543,5 @@ class Maximizer:
             initial_value, criteria=criteria, diagnostics_fn=diagnostics_fn,
             infeas_scale=_infeas_scale(obj, criteria), health=health,
             checkpoint_fn=checkpoint_fn, preempt_fn=preempt_fn,
-            initial_state=initial_state, resume_meta=resume_meta)
+            initial_state=initial_state, resume_meta=resume_meta,
+            telemetry=telemetry, profiler=profiler, sampler=sampler)

@@ -38,6 +38,16 @@ continues from the latest checkpoint, refusing one written for another
 instance or another rule.  Under ranks the files hold the whole λ and
 state, whatever the number of ranks that wrote them: every rank reads
 them and keeps its own part.
+
+Observability (DESIGN.md §11, §13): every line of output goes through a
+leveled `Telemetry` logger (`--log-level`; stderr under `--json`).
+`--log-jsonl PATH` also records the structured run log (the manifest
+with the launch census as `byte_census`, an `execute` and a `host` span a
+chunk, check/γ/health/memory events, the metrics digest) for `python -m
+repro_torch.launch.report PATH`; `--profile-dir` writes a torch.profiler
+trace of a window of chunks; `--metrics-port` serves `/metrics` during
+the run; `--max-host-rss-mb` is the host-memory soft guard.  Under ranks
+rank 0 alone records.
 """
 from __future__ import annotations
 
@@ -59,11 +69,14 @@ import torch.distributed as dist
 
 from ..checkpoint import CheckpointManager
 from ..convert import lp_to_torch
+from ..obs import (LEVELS, REGISTRY, JsonlSink, MemorySampler,
+                   MetricsExporter, ProfilerHook, Telemetry)
 from ..core import (DistributedMatchingObjective, HealthConfig, InstanceSpec,
                     LPValidationError, MatchingObjective, Maximizer,
                     SolveConfig, StopReason, StoppingCriteria, generate,
                     get_rule, precondition, rule_names, validate_lp)
 from .. import formulations
+from . import census
 from .mesh import init_ranks, make_grid
 
 
@@ -235,6 +248,36 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where the solve runs (default: the card; under "
                          "torch.distributed.run, cuda:LOCAL_RANK)")
+    # observability (DESIGN.md §11)
+    ap.add_argument("--log-jsonl", default=None, metavar="PATH",
+                    help="append the structured run log (manifest, spans, "
+                         "check/γ/health events) to PATH as JSON lines; "
+                         "render it with `python -m "
+                         "repro_torch.launch.report`")
+    ap.add_argument("--log-level", default="info", choices=sorted(LEVELS),
+                    help="console verbosity; the JSONL log always carries "
+                         "the full stream")
+    ap.add_argument("--profile-dir", default=None, metavar="DIR",
+                    help="capture a torch.profiler trace of the chunk "
+                         "window [--profile-start-chunk, "
+                         "+--profile-num-chunks) to DIR (opt-in; needs a "
+                         "chunked solve)")
+    ap.add_argument("--profile-start-chunk", type=int, default=0,
+                    help="first chunk index inside the profiler trace")
+    ap.add_argument("--profile-num-chunks", type=int, default=1,
+                    help="number of chunks the profiler trace spans")
+    # resource observability (DESIGN.md §13)
+    ap.add_argument("--metrics-port", type=int, default=None,
+                    metavar="PORT",
+                    help="serve live Prometheus /metrics on PORT for the "
+                         "duration of the solve (counters, histograms, "
+                         "memory gauges; 0 binds an ephemeral port)")
+    ap.add_argument("--max-host-rss-mb", type=float, default=None,
+                    metavar="MB",
+                    help="soft host-memory guard: warn (and emit a flagged "
+                         "`memory` event) when this process's RSS crosses "
+                         "MB MiB — the measurement hook for the "
+                         "larger-than-RSS out-of-core gate")
     return ap
 
 
@@ -281,8 +324,9 @@ def generate_instance(args, log=print) -> Instance:
 
 def solve_config(args):
     """The SolveConfig and StoppingCriteria the flags describe.  Adaptive
-    continuation, the health guard and checkpoints run chunked even with
-    no tolerance, so they get criteria for the --check-every cadence."""
+    continuation, the health guard, checkpoints and the profiler run
+    chunked even with no tolerance, so they get criteria for the
+    --check-every cadence."""
     continuation = args.continuation or args.adaptive_continuation
     cfg = SolveConfig(
         iterations=args.iterations, gamma=args.gamma,
@@ -293,7 +337,8 @@ def solve_config(args):
     criteria = None
     if (args.tol_infeas is not None or args.tol_rel_dual is not None
             or args.max_seconds is not None or args.adaptive_continuation
-            or args.health_guard or args.checkpoint_dir):
+            or args.health_guard or args.checkpoint_dir
+            or args.profile_dir):
         criteria = StoppingCriteria(
             tol_infeas=args.tol_infeas, tol_rel_dual=args.tol_rel_dual,
             max_seconds=args.max_seconds, check_every=args.check_every)
@@ -393,19 +438,35 @@ def _quiet(msg):
     """The log of a rank other than 0."""
 
 
-def run(args, log=print, instance: Optional[Instance] = None) -> Outcome:
+def run(args, log=print, instance: Optional[Instance] = None,
+        telemetry: Optional[Telemetry] = None, profiler=None,
+        sampler=None) -> Outcome:
     """One solve as the flags describe, on this process's rank
     (`mesh.init_ranks`).  `instance`, when given, is the flags' instance
     generated once by `generate_instance`, so that several runs in one
-    process pay the host generation once."""
+    process pay the host generation once.
+
+    Output goes to `log`, or with `telemetry` through it (info, warning
+    and error records).  `telemetry`, `profiler` and `sampler` default to
+    off.  Rank 0 alone logs and records."""
     if args.resume and not args.checkpoint_dir:
         raise SystemExit("--resume requires --checkpoint-dir")
     ranks = init_ranks(args.device)
     device, lead = ranks.device, ranks.rank == 0
+    tel = (telemetry if telemetry is not None and lead
+           else Telemetry.disabled())
+    warn = error = log
+    if telemetry is not None:
+        log, warn, error = tel.info, tel.warning, tel.error
     if not lead:
-        log = _quiet
+        log = warn = error = _quiet
+        sampler = None
+        if args.formulation != "matching":
+            profiler = None   # the distributed solve disarms its own
     if instance is None:
-        instance = generate_instance(args, log)
+        with tel.span("generate", sources=args.sources,
+                      destinations=args.destinations):
+            instance = generate_instance(args, log)
     lp_np, generate_seconds = instance
     cfg, criteria = solve_config(args)
 
@@ -416,6 +477,18 @@ def run(args, log=print, instance: Optional[Instance] = None) -> Outcome:
                 f"gamma {rec.gamma:.4f}  {rec.elapsed:.1f}s")
 
     fingerprint = instance_fingerprint(lp_np)
+    tel.manifest(
+        fingerprint=fingerprint, formulation=args.formulation,
+        algorithm=args.algorithm, sources=args.sources,
+        destinations=args.destinations, seed=args.seed,
+        gamma=cfg.gamma, gamma_init=cfg.gamma_init,
+        adaptive_continuation=cfg.adaptive_continuation,
+        iterations_cap=args.iterations,
+        check_every=(criteria.check_every if criteria else None),
+        config=dataclasses.asdict(cfg), ax_mode=args.ax_mode,
+        device=str(device), ranks=ranks.world,
+        device_name=(torch.cuda.get_device_name(device)
+                     if device.type == "cuda" else None))
     health = (HealthConfig(max_retries=args.max_retries)
               if args.health_guard else None)
     ckpt = (_Checkpoints(args, fingerprint, device, log, writes=lead)
@@ -461,16 +534,18 @@ def run(args, log=print, instance: Optional[Instance] = None) -> Outcome:
         cfg, skipped, why = apply_warm_start_policy(cfg, meta, fingerprint)
         if skipped:
             log(f"warm start: {why}")
+            tel.event("resolve", outcome="accept", reason=why)
         elif cfg.gamma_init is not None and cfg.gamma_init > cfg.gamma:
-            log(f"WARNING: --warm-start with --continuation re-runs the γ "
-                f"schedule from gamma_init and will march the loaded λ away "
-                f"from its optimum ({why})")
+            warn(f"WARNING: --warm-start with --continuation re-runs the γ "
+                 f"schedule from gamma_init and will march the loaded λ "
+                 f"away from its optimum ({why})")
+            tel.event("resolve", outcome="reject", reason=why)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     t_solve = time.perf_counter()
-    hooks = {}
+    hooks = dict(telemetry=tel, profiler=profiler, sampler=sampler)
     if ckpt is not None:
-        hooks = dict(checkpoint_fn=ckpt.save, preempt_fn=ckpt.preempted,
+        hooks.update(checkpoint_fn=ckpt.save, preempt_fn=ckpt.preempted,
                      initial_state=ckpt.state, resume_meta=ckpt.meta)
     with ckpt if ckpt is not None else contextlib.nullcontext():
         if isinstance(obj, DistributedMatchingObjective):
@@ -492,22 +567,22 @@ def run(args, log=print, instance: Optional[Instance] = None) -> Outcome:
         f"({dt / max(res.iterations_run, 1) * 1e3:.1f} ms/iter, set-up "
         f"included); stop reason: {reason}")
     for rec in res.health:
-        log(f"  health: it {rec.it} {rec.status} -> {rec.action} "
-            f"(retry {rec.retries}, step_scale {rec.step_scale:.3g}, "
-            f"gamma {rec.gamma:.4g})")
+        warn(f"  health: it {rec.it} {rec.status} -> {rec.action} "
+             f"(retry {rec.retries}, step_scale {rec.step_scale:.3g}, "
+             f"gamma {rec.gamma:.4g})")
     if res.stop_reason == StopReason.DIVERGED:
-        log("solve DIVERGED: health-guard retries exhausted; the duals are "
-            "the last state that passed the health checks")
+        error("solve DIVERGED: health-guard retries exhausted; the duals "
+              "are the last state that passed the health checks")
     if d.size:
         log(f"dual {d[0]:.3f} -> {d[-1]:.3f}; "
             f"infeas {float(res.stats.infeas[-1]):.3e}; "
             f"gamma {float(res.stats.gamma[-1]):.4f}")
     if res.stop_reason == StopReason.PREEMPTED:
-        log(f"preempted at iteration {res.iterations_run}; resume with "
-            f"--resume --checkpoint-dir {args.checkpoint_dir}")
+        warn(f"preempted at iteration {res.iterations_run}; resume with "
+             f"--resume --checkpoint-dir {args.checkpoint_dir}")
     gamma_last = float(res.stats.gamma[-1]) if d.size else cfg.gamma
     result = {
-        "run_id": uuid.uuid4().hex[:12],
+        "run_id": tel.run_id if tel.enabled else uuid.uuid4().hex[:12],
         "formulation": args.formulation,
         "algorithm": args.algorithm,
         "iterations_run": int(res.iterations_run),
@@ -528,6 +603,11 @@ def run(args, log=print, instance: Optional[Instance] = None) -> Outcome:
         log(f"saved duals -> {args.save_duals} (gamma={gamma_last:.4g}, "
             f"fingerprinted)")
         result["saved_duals"] = args.save_duals
+    if args.log_jsonl and lead:
+        # one evaluation's bytes, operations and collective bytes on this
+        # rank, from the objective that ran the solve
+        with tel.span("census"):
+            tel.manifest(byte_census=census.evaluation_census(obj))
     if isinstance(obj, DistributedMatchingObjective):
         # one rank holds the whole LP: its own objective serves the
         # certificate and the caller; several: rank 0 builds one below
@@ -535,8 +615,8 @@ def run(args, log=print, instance: Optional[Instance] = None) -> Outcome:
     t_cert = time.perf_counter()
     extract = args.export_primal or args.certify
     if extract and res.stop_reason == StopReason.PREEMPTED:
-        log("skipping primal export/certification: solve was preempted "
-            "mid-trajectory (resume it to completion first)")
+        warn("skipping primal export/certification: solve was preempted "
+             "mid-trajectory (resume it to completion first)")
     elif extract and lead:
         from ..primal import certify, format_certificate, write_shards
         serve = obj
@@ -547,9 +627,11 @@ def run(args, log=print, instance: Optional[Instance] = None) -> Outcome:
         gamma_final = np.float32(gamma_last)
         if args.export_primal:
             t_x = time.perf_counter()
-            paths = write_shards(serve, res.lam, gamma_final,
-                                 args.export_primal,
-                                 chunk_rows=args.chunk_rows)
+            with tel.span("export_primal"):
+                paths = write_shards(serve, res.lam, gamma_final,
+                                     args.export_primal,
+                                     chunk_rows=args.chunk_rows,
+                                     sampler=sampler)
             dt_x = time.perf_counter() - t_x
             n_src = sum(s.n for s in serve.lp.slabs)
             log(f"exported {len(paths)} decision shards ({n_src} sources) "
@@ -558,15 +640,26 @@ def run(args, log=print, instance: Optional[Instance] = None) -> Outcome:
             result["export_shards"] = len(paths)
         t_cert = time.perf_counter()
         if args.certify:
-            cert = certify(serve, res.lam, gamma_final,
-                           chunk_rows=args.chunk_rows)
+            with tel.span("certify"):
+                cert = certify(serve, res.lam, gamma_final,
+                               chunk_rows=args.chunk_rows, sampler=sampler)
             log(format_certificate(cert))
             result["certificate_valid"] = bool(cert.valid)
+    certify_seconds = time.perf_counter() - t_cert
+    if sampler is not None:
+        # the extraction's and certificate's samples join the engine's
+        # watermarks; the run's peaks go to the manifest and the result
+        marks = sampler.watermarks()
+        tel.manifest(**marks)
+        result["peak_rss_bytes"] = marks["peak_rss_bytes"]
+        result["peak_hbm_bytes"] = marks["peak_hbm_bytes"]
+        if marks["peak_rss_bytes"]:
+            log(f"peak host RSS {marks['peak_rss_bytes'] / 2**20:.0f} MiB "
+                f"over {marks['memory_samples']} samples")
     return Outcome(result=result, objective=obj, lam=res.lam,
                    gamma=gamma_last, generate_seconds=generate_seconds,
                    setup_seconds=t_solve - t0, solve_seconds=t_end - t_solve,
-                   certify_seconds=time.perf_counter() - t_cert,
-                   rank=ranks.rank)
+                   certify_seconds=certify_seconds, rank=ranks.rank)
 
 
 def main(argv: Optional[list] = None) -> dict:
@@ -576,18 +669,53 @@ def main(argv: Optional[list] = None) -> dict:
         ap.error("--lambda-sharded is only supported with --formulation "
                  "matching (composed formulations solve on a single "
                  "replicated λ)")
-    out = sys.stderr if args.json else sys.stdout
-
-    def log(msg):
-        print(msg, file=out, flush=True)
-
+    lead = init_ranks(args.device).rank == 0
+    # --json owns stdout: exactly one JSON object; every log line (and the
+    # full record stream, with --log-jsonl) goes elsewhere.  Rank 0 alone
+    # records; the other ranks run quiet.
+    tel = Telemetry.disabled()
+    sampler = registry = exporter = None
+    # every rank takes the profiler: it makes the loop chunked, and the
+    # ranks must chunk alike; the distributed solve lets rank 0 record
+    profiler = (ProfilerHook(args.profile_dir,
+                             start_chunk=args.profile_start_chunk,
+                             num_chunks=args.profile_num_chunks)
+                if args.profile_dir else None)
+    if lead:
+        tel = Telemetry(
+            sink=JsonlSink(args.log_jsonl) if args.log_jsonl else None,
+            level=args.log_level,
+            stream=sys.stderr if args.json else sys.stdout)
+        tel.manifest(argv=list(sys.argv[1:] if argv is None else argv))
+        # the sampler rides along whenever something reads it: the run log
+        # (memory events, manifest watermarks), /metrics or the RSS guard;
+        # otherwise the solve makes no resource read at all
+        if (args.log_jsonl or args.metrics_port is not None
+                or args.max_host_rss_mb is not None):
+            registry = REGISTRY
+            sampler = MemorySampler(
+                registry=registry, telemetry=tel,
+                max_host_rss_bytes=(int(args.max_host_rss_mb * 2**20)
+                                    if args.max_host_rss_mb is not None
+                                    else None),
+                device=init_ranks(args.device).device)
+        if args.metrics_port is not None:
+            exporter = MetricsExporter(registry, args.metrics_port)
+            tel.info(f"serving /metrics on {exporter.url}")
     try:
-        outcome = run(args, log)
+        outcome = run(args, telemetry=tel, profiler=profiler,
+                      sampler=sampler)
+        if registry is not None:
+            # the registry's digest: the series /metrics served, in the log
+            tel.event("metrics", series=registry.summary())
         if args.json and outcome.rank == 0:
             print(json.dumps(outcome.result, sort_keys=True), flush=True)
         result = outcome.result
     finally:
         outcome = None
+        if exporter is not None:
+            exporter.close()
+        tel.close()
         if dist.is_initialized():
             # the objective's subgroups go first: one left to the exit's
             # teardown, after the default group, can abort the process

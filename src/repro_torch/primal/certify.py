@@ -193,10 +193,14 @@ def repair_witness(obj, xs: Sequence[np.ndarray], eps: float = 1e-6,
 
 
 def certify(obj, lam, gamma, xs: Optional[Sequence[np.ndarray]] = None,
-            tol: float = 1e-5, chunk_rows: int = 4096) -> Certificate:
+            tol: float = 1e-5, chunk_rows: int = 4096,
+            sampler=None) -> Certificate:
     """Build the duals-to-decisions certificate.  `xs` is the witness;
     when omitted it is extracted from λ in chunks and made feasible across
-    every family by `repair_witness`."""
+    every family by `repair_witness`.  `sampler` (a
+    `repro_torch.obs.MemorySampler`) is read once an extraction chunk and
+    once after the family sums, the certify path's host high; None reads
+    nothing, and the certificate is the same either way."""
     dev = obj.lp.b.device
     g = float(obj.calculate(torch.as_tensor(lam, device=dev),
                             torch.as_tensor(gamma, dtype=torch.float32,
@@ -204,9 +208,12 @@ def certify(obj, lam, gamma, xs: Optional[Sequence[np.ndarray]] = None,
     lp = lp_to_numpy(obj.lp)
     if xs is None:
         xs = repair_witness(obj, extract_primal(obj, lam, gamma,
-                                                chunk_rows=chunk_rows),
+                                                chunk_rows=chunk_rows,
+                                                sampler=sampler),
                             lp=lp)
     slacks = family_slacks(obj, xs, lp)
+    if sampler is not None:
+        sampler.sample(where="certify")
     worst = max((s.violation_rel for s in slacks.values()), default=0.0)
     B = x_sq_bound(lp)
     dereg = 0.5 * float(gamma) * B

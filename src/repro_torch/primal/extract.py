@@ -53,9 +53,11 @@ class PrimalChunk:
 
 
 def iter_primal_chunks(obj, lam, gamma, chunk_rows: int = 4096,
-                       slab_indices: Optional[Sequence[int]] = None
-                       ) -> Iterator[PrimalChunk]:
-    """Yield x*(λ) chunk by chunk over source-row blocks (module doc)."""
+                       slab_indices: Optional[Sequence[int]] = None,
+                       sampler=None) -> Iterator[PrimalChunk]:
+    """Yield x*(λ) chunk by chunk over source-row blocks (module doc).
+    `sampler` (a `repro_torch.obs.MemorySampler`) is read once a chunk,
+    after the chunk's host copy; None reads nothing."""
     dev = obj.lp.b.device
     lam = torch.as_tensor(lam, device=dev)
     gamma = torch.as_tensor(gamma, dtype=torch.float32, device=dev)
@@ -75,18 +77,22 @@ def iter_primal_chunks(obj, lam, gamma, chunk_rows: int = 4096,
             x = rows_to_host(obj.primal_rows(
                 lam, gamma, si, torch.from_numpy(idx).to(dev)))[:take]
             real = idx[:take]
+            if sampler is not None:
+                sampler.sample(where="extract", it=start)
             yield PrimalChunk(slab_index=si, start=start,
                               source_ids=ids[real], dest_idx=dest[real],
                               mask=mask[real], x=x)
 
 
-def extract_primal(obj, lam, gamma, chunk_rows: int = 4096
-                   ) -> List[np.ndarray]:
+def extract_primal(obj, lam, gamma, chunk_rows: int = 4096,
+                   sampler=None) -> List[np.ndarray]:
     """Assembled per-slab (n, w) float32 host decision arrays from the
-    chunked recovery, equal to `obj.primal(λ)` bit for bit."""
+    chunked recovery, equal to `obj.primal(λ)` bit for bit, sampled or
+    not (`sampler` as in `iter_primal_chunks`)."""
     out = [np.zeros(tuple(s.c_vals.shape), np.float32)
            for s in obj.lp.slabs]
-    for ch in iter_primal_chunks(obj, lam, gamma, chunk_rows):
+    for ch in iter_primal_chunks(obj, lam, gamma, chunk_rows,
+                                 sampler=sampler):
         out[ch.slab_index][ch.start:ch.start + len(ch.x)] = ch.x
     return out
 
@@ -96,18 +102,20 @@ def _shard_name(slab_index: int, start: int) -> str:
 
 
 def write_shards(obj, lam, gamma, out_dir: str, chunk_rows: int = 4096,
-                 rounder=None) -> List[str]:
+                 rounder=None, sampler=None) -> List[str]:
     """Stream-extract to `.npz` shards, one per chunk (the export path).
 
     Each shard holds `slab_index`, `start`, `source_ids`, `dest_idx`,
     `mask`, `x` — and `x_round` when a `rounder(chunk) -> (n, w) array`
     is supplied (chunk-local rounding only; capacity-respecting repair is
     a global pass and lives in `primal.rounding`/`primal.certify`).
-    Returns the shard paths in write order.
+    Returns the shard paths in write order.  `sampler` as in
+    `iter_primal_chunks`.
     """
     os.makedirs(out_dir, exist_ok=True)
     paths = []
-    for ch in iter_primal_chunks(obj, lam, gamma, chunk_rows):
+    for ch in iter_primal_chunks(obj, lam, gamma, chunk_rows,
+                                 sampler=sampler):
         payload = dict(slab_index=np.int64(ch.slab_index),
                        start=np.int64(ch.start),
                        source_ids=ch.source_ids, dest_idx=ch.dest_idx,

@@ -864,3 +864,78 @@ def test_frontend_refresh_on_card(dev):
     for d in after.decisions.values():
         assert np.array_equal(d.x, new[d.slab_index][d.row])
     fe.drain(timeout=30.0)
+
+
+def _obs_objective(dev):
+    lp_np = generate(InstanceSpec(num_sources=20000, num_destinations=300,
+                                  avg_nnz_per_row=20, seed=9))
+    lp, _ = precondition(lp_to_torch(lp_np, dev), row_norm=True)
+    return MatchingObjective(lp, ax_mode="aligned")
+
+
+def test_profiler_window_names_k1_and_k2(dev, tmp_path):
+    """The trace of chunks 1-2 holds K1's and K2's kernels, as many as the
+    launch counters counted over those chunks (a K2 call is two CUDA
+    launches: the items, then the second pass); the observed solve
+    equals the bare one bit for bit."""
+    import json
+    from repro_torch.kernels.ax_reduce import ax_reduce_plan_x
+    from repro_torch.obs import ProfilerHook
+    obj = _obs_objective(dev)
+    cfg = SolveConfig(iterations=40, gamma=0.01, max_step=1e-1,
+                      initial_step=1e-5)
+    crit = StoppingCriteria(tol_grad_norm=0.0, check_every=10)
+    bare = Maximizer(cfg).maximize(obj, criteria=crit)
+    snaps = []
+    prof = ProfilerHook(str(tmp_path), start_chunk=1, num_chunks=2)
+    res = Maximizer(cfg).maximize(
+        obj, criteria=crit, profiler=prof,
+        diagnostics_fn=lambda rec: snaps.append(
+            (dual_x_slab.launches, ax_reduce_plan_x.launches)))
+    assert torch.equal(bare.lam, res.lam)
+    k1 = snaps[2][0] - snaps[0][0]
+    k2 = snaps[2][1] - snaps[0][1]
+    with open(prof.trace_paths[0]) as f:
+        names = [e["name"] for e in json.load(f)["traceEvents"]
+                 if e.get("cat") == "kernel"]
+    n_k1 = sum("dual_x_kernel" in n and "false>" in n for n in names)
+    n_items = sum("ax_items_kernel" in n and "XSrc" in n for n in names)
+    n_second = sum("sum_items_kernel" in n for n in names)
+    assert n_k1 == k1 == 20 * len(obj.lp.slabs)
+    assert n_items == k2 == 20
+    assert n_second == (k2 if obj._work.multi.shape[0] else 0)
+
+
+def test_sampler_reads_the_cards_allocator(dev):
+    from repro_torch.obs import ListSink, MemorySampler, Telemetry
+    obj = _obs_objective(dev)
+    sink = ListSink()
+    tel = Telemetry(sink=sink)
+    sampler = MemorySampler(telemetry=tel, device=dev)
+    s = sampler.sample()
+    assert s.device_bytes_in_use > 0 and s.peak_hbm_bytes > 0
+    Maximizer(SolveConfig(iterations=20, gamma=0.01)).maximize(
+        obj, criteria=StoppingCriteria(tol_grad_norm=0.0, check_every=10),
+        telemetry=tel, sampler=sampler)
+    mem = [r for r in sink.records if r["type"] == "memory"]
+    assert len(mem) == 2
+    for r in mem:
+        assert r["device_bytes_in_use"] > 0 and r["device_peak_bytes"] > 0
+    assert sampler.watermarks()["peak_hbm_bytes"] <= \
+        torch.cuda.max_memory_allocated(dev)
+
+
+def test_census_k1_bytes_are_phase4s_formula(dev):
+    """chip_smoke.py phase 4's K1 bytes on a small objective on the card:
+    a, c, dest, ub at the real edges, the mask and x over every padded
+    entry, s a row, λ once."""
+    from repro_torch.launch import census
+    obj = _obs_objective(dev)
+    slabs, m, J = obj.lp.slabs, obj.lp.m, obj.lp.num_destinations
+    real = sum(int(s.mask.sum()) for s in slabs)
+    padded = sum(s.n * s.width for s in slabs)
+    rows = sum(s.n for s in slabs)
+    want = (real * (4 * m + 4 + 4 + 4) + padded + rows * 4 + m * J * 4
+            + padded * 4)
+    got = census.evaluation_census(obj)["kernels"]["dual_x_slab"]["bytes"]
+    assert got == want

@@ -26,6 +26,17 @@ def test_port_files_found():
     assert all(p.exists() for p in FILES)
 
 
+# the observability slice's modules, each of which the scan must cover
+OBS_MODULES = ("obs/memory.py", "obs/profile.py", "obs/__init__.py",
+               "launch/census.py", "launch/report.py",
+               "core/baseline_numpy.py", "core/maximizer.py")
+
+
+@pytest.mark.parametrize("rel", OBS_MODULES)
+def test_observability_modules_scanned(rel):
+    assert ROOT / "src" / "repro_torch" / rel in FILES
+
+
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_imports(path):
     bad = [name for name in _imports(path)

@@ -6,6 +6,7 @@ brings up a gloo group of WORLD ranks over the FileStore at STORE (no
 TCP port, so that test workers running side by side never meet), runs
 CASE with the JSON SPEC on the test instance (50 x 10, nu = 10, seed 7,
 row-normalized), writes `OUT/rank<RANK>.npz` and tears the group down.
+`test_torch_census.py` runs its `observed` case.
 Imports torch and the port only.
 """
 import datetime
@@ -109,6 +110,55 @@ def checkpoint(lp, grid, spec, rank):
     return {f"state{i}": t.numpy() for i, t in enumerate(st[:-1])}
 
 
+def observed(lp, grid, spec, rank):
+    """agd in chunks of 10 twice on the same objective, bare and with a
+    recording telemetry, a sampler and a profiler on every rank: rank 0
+    records, the others get none of them; the `agree` collective runs once
+    a chunk boundary on every rank either way.  Returns both runs' λ, the
+    records and samples on this rank, the agree calls of the observed
+    run, this rank's launch census and the counts it is reckoned from."""
+    from repro_torch.launch.census import evaluation_census
+    from repro_torch.obs import ListSink, MemorySampler, ProfilerHook, Telemetry
+    obj = DistributedMatchingObjective(lp, grid,
+                                       lambda_axis=spec.get("lambda_axis"),
+                                       ax_mode="aligned")
+    cfg = SolveConfig(**dict(CFG, iterations=40))
+    crit = StoppingCriteria(tol_grad_norm=0.0, check_every=10)
+    bare = obj.solve(cfg, criteria=crit)
+    calls = [0]
+    agree = obj.agree
+
+    def counting(flags):
+        calls[0] += 1
+        return agree(flags)
+
+    obj.agree = counting
+    sink = ListSink()
+    sampler = MemorySampler()
+    prof = ProfilerHook(spec["dir"], start_chunk=1, num_chunks=1)
+    seen = obj.solve(cfg, criteria=crit,
+                     telemetry=Telemetry(sink=sink,
+                                         stream=open(os.devnull, "w")),
+                     profiler=prof, sampler=sampler)
+    local = obj.local
+    slabs, plan = local.lp.slabs, local._plan
+    return {"lam_bare": bare.lam.numpy(), "lam_seen": seen.lam.numpy(),
+            "records": np.array(len(sink.records)),
+            "samples": np.array(sampler.watermarks()["memory_samples"]),
+            "traces": np.array(len(prof.trace_paths)),
+            "agree_calls": np.array(calls[0]),
+            "census": np.array(json.dumps(evaluation_census(obj))),
+            "slab_real": np.array(sum(int(s.mask.sum()) for s in slabs)),
+            "slab_padded": np.array(sum(s.n * s.width for s in slabs)),
+            "slab_rows": np.array(sum(s.n for s in slabs)),
+            "plan_real": np.array(sum(int(b.mask.sum())
+                                      for b in plan.buckets)),
+            "plan_entries": np.array(sum(b.mask.numel()
+                                         for b in plan.buckets)),
+            "plan_rows": np.array(sum(b.dest_ids.numel()
+                                      for b in plan.buckets))}
+
+
 def main():
     case, rank, world, store, out_dir, spec = sys.argv[1:]
     rank, world, spec = int(rank), int(world), json.loads(spec)
@@ -129,7 +179,7 @@ def run(case, rank, world, out_dir, spec):
     assert ranks.grouped and ranks.world == world, ranks
     grid = make_grid(spec["shape"], spec["axes"])
     result = {"trajectories": trajectories, "preempt": preempt,
-              "checkpoint": checkpoint}[case](make_lp(), grid, spec, rank)
+              "checkpoint": checkpoint, "observed": observed}[case](make_lp(), grid, spec, rank)
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **result)
 
 

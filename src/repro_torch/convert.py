@@ -1,11 +1,15 @@
-"""Moving instances and duals between host numpy and torch devices.
+"""Moving instances, duals and model weights between host numpy and torch
+devices.
 
 The generator (`core.instance`) returns NamedTuples with numpy leaves, as
 the reference's does; these helpers put them on a device.  They accept any
 LPData/AxPlan-shaped NamedTuple whose leaves numpy can read, so the tests
-feed one generated instance to both packages.
+feed one generated instance to both packages.  `lm_params_from_numpy`
+carries an LM's weights across by path.
 """
 from __future__ import annotations
+
+from typing import Dict, Mapping
 
 import numpy as np
 import torch
@@ -64,3 +68,28 @@ def lam_to_torch(lam, device) -> torch.Tensor:
 
 def lam_to_numpy(lam: torch.Tensor) -> np.ndarray:
     return lam.detach().cpu().numpy()
+
+
+def _host_tensor(a) -> torch.Tensor:
+    """A host array as a CPU tensor; numpy has no bfloat16, so an array of
+    the `ml_dtypes` bfloat16 type comes in through its 16 bits."""
+    a = np.ascontiguousarray(np.asarray(a))
+    if not a.flags.writeable:       # torch takes no read-only memory
+        a = a.copy()
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(
+            torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def lm_params_from_numpy(params: Mapping[str, np.ndarray], cfg,
+                         device) -> Dict[str, torch.Tensor]:
+    """An LM's params by path (the reference's `model.init(...)` leaves as
+    host arrays) -> tensors on `device`, each in its `param_defs()` dtype.
+    `Model.load_params` checks the paths and shapes."""
+    from .models.transformer import lm_param_defs
+    defs = lm_param_defs(cfg)
+    return {path: _host_tensor(a).to(
+                device=device,
+                dtype=defs[path].dtype if path in defs else None)
+            for path, a in params.items()}

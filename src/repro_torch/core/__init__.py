@@ -10,8 +10,8 @@
                                      and speed baseline (not imported here)
 """
 from .types import (AxBucket, AxPlan, ConvergenceCheck, HealthConfig,
-                    IterStats, LPData, Slab, SolveConfig, SolveResult,
-                    SolveState, StopReason, StoppingCriteria)
+                    HealthRecord, IterStats, LPData, Slab, SolveConfig,
+                    SolveResult, SolveState, StopReason, StoppingCriteria)
 from .projections import (ProjectionMap, project, project_box,
                           project_boxcut, project_boxcut_exact_1d,
                           project_boxcut_newton)
@@ -21,9 +21,9 @@ from .objectives import (AX_MODES, GlobalCountObjective, MatchingObjective,
 from .maximizer import Maximizer, SolveEngine, maximize
 from .update_rules import (LOCAL, DualReduce, UpdateRule, gamma_at,
                            get_rule, max_step_at, register_rule, rule_names)
-from .preconditioning import (precondition, primal_scale, row_normalize,
-                              row_norms, undo_primal_scaling,
-                              undo_row_scaling)
+from .preconditioning import (gram_condition_number, precondition,
+                              primal_scale, row_normalize, row_norms,
+                              undo_primal_scaling, undo_row_scaling)
 from .instance import (InstanceSpec, LPValidationError, build_ax_plan,
                        build_sharded_ax_plan, generate, pack_slabs, to_dense,
                        validate_lp)
@@ -32,8 +32,8 @@ from .distributed import (DistributedMatchingObjective, ShardedDualReduce,
                           solve_distributed)
 
 __all__ = [
-    "AxBucket", "AxPlan", "ConvergenceCheck", "HealthConfig", "IterStats",
-    "LPData", "Slab", "SolveConfig", "SolveResult", "SolveState",
+    "AxBucket", "AxPlan", "ConvergenceCheck", "HealthConfig", "HealthRecord",
+    "IterStats", "LPData", "Slab", "SolveConfig", "SolveResult", "SolveState",
     "StopReason", "StoppingCriteria",
     "ProjectionMap", "project", "project_box", "project_boxcut",
     "project_boxcut_exact_1d", "project_boxcut_newton",
@@ -42,8 +42,8 @@ __all__ = [
     "Maximizer", "SolveEngine", "maximize",
     "DualReduce", "LOCAL", "UpdateRule", "gamma_at", "get_rule",
     "max_step_at", "register_rule", "rule_names",
-    "precondition", "primal_scale", "row_normalize", "row_norms",
-    "undo_primal_scaling", "undo_row_scaling",
+    "gram_condition_number", "precondition", "primal_scale",
+    "row_normalize", "row_norms", "undo_primal_scaling", "undo_row_scaling",
     "InstanceSpec", "LPValidationError", "build_ax_plan",
     "build_sharded_ax_plan", "generate", "pack_slabs", "to_dense",
     "validate_lp",

@@ -5,12 +5,14 @@ Row normalization: A' = D A, b' = D b with D = diag(‖A_r·‖₂⁻¹); zero-n
 rows are left unscaled.  Primal scaling: z = v_i·x per source block, with
 v_i the RMS of the block's column norms.  Both act on the slab layout on
 whatever device the LP lives on, and return a new LPData plus what is
-needed to map duals and primals back.
+needed to map duals and primals back.  `gram_condition_number` is κ(AAᵀ)
+on the host in float64, for small instances.
 """
 from __future__ import annotations
 
 from typing import NamedTuple, Tuple
 
+import numpy as np
 import torch
 
 from .types import LPData
@@ -103,3 +105,37 @@ def precondition(lp: LPData, row_norm: bool = True, primal: bool = False):
     if row_norm:
         lp, row_scaling = row_normalize(lp)
     return lp, (row_scaling, p_scaling)
+
+
+def _host(a) -> np.ndarray:
+    if isinstance(a, torch.Tensor):
+        if a.dtype == torch.bfloat16:     # numpy has no bfloat16
+            a = a.float()
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
+
+
+def gram_condition_number(lp: LPData) -> float:
+    """κ(AAᵀ) from the dense Gram matrix over the m·J dual rows, summed in
+    numpy float64 — small instances only (tests, the Lemma 5.1 check).
+    Rows with a zero diagonal are dropped, and so are eigenvalues under
+    1e-12 of the largest.  A row (k, j) meets only edges into destination
+    j, so an edge adds a_k1·a_k2 at (k1·J + j, k2·J + j).  As in the
+    reference, each product is formed in the slab's dtype (float32) and
+    the entries are summed slab by slab, row by row: its rounding then
+    sets the smallest eigenvalues kept, and κ with them."""
+    m, J = lp.m, lp.num_destinations
+    gram = np.zeros((m * J, m * J))
+    for slab in lp.slabs:
+        a = _host(slab.a_vals)                          # (n, w, m)
+        d = _host(slab.dest_idx).reshape(-1)            # (n·w,)
+        flat = a.reshape(-1, a.shape[-1])
+        for k1 in range(a.shape[-1]):
+            for k2 in range(a.shape[-1]):
+                np.add.at(gram, (k1 * J + d, k2 * J + d),
+                          flat[:, k1] * flat[:, k2])
+    nz = np.diag(gram) > 0
+    gram = gram[np.ix_(nz, nz)]
+    ev = np.linalg.eigvalsh(gram)
+    ev = ev[ev > max(ev.max() * 1e-12, 0)]
+    return float(ev.max() / ev.min())

@@ -194,6 +194,42 @@ nothing of JAX or of the JAX package.  Phases, each failing loudly:
               the same weights at 1e-4 of the largest; (d) decode ms a step
               and tokens/s at batch 4 and 32 (CUDA events) beside the
               bytes bound
+ 15. families the other families in bfloat16, drawn on the card from a
+              seeded generator: granite-moe-1b-a400m, mamba2-780m,
+              seamless-m4t-medium and pixtral-12b at their published
+              width, llama4-scout-17b-a16e at its width and 2 of its 48
+              layers (109 B params do not fit), each with its count and
+              peak HBM: (a) serve_lm's five requests at batch 4, max_seq
+              64, greedy (granite and llama4 under einsum and gather,
+              their tokens printed side by side; batch-composition
+              invariance required where no MoE capacity drop can move a
+              token, printed otherwise); (b) granite (capacity factor
+              raised to E) and mamba2: the logits after 8 decode steps
+              against prefill's in float32 at atol 2e-2 / rtol 1e-2, the
+              bfloat16 max |diff| printed; seamless's prefill with 64
+              frames and pixtral's with its 1,024 patch stand-ins: finite,
+              moved by them; (c) the six non-dense reduced configs
+              (jamba's 398 B only so) in float32, prefill and decode on
+              the card against the CPU on the same weights at 1e-4 of the
+              largest; (d) decode ms a step and tokens/s at batch 4 and 32
+              (CUDA events) beside the bytes bound (every weight read once
+              a step; with the caches; for MoE with only top-k experts)
+ 16. train    (a) `python -m repro_torch.launch.train --arch qwen3-1.7b
+              --full-config --steps 10 --lr 1e-3` as a process (batch 8 x
+              seq 128, bfloat16 params, float32 AdamW state, remat full):
+              no step skipped, the first loss within 1 of ln(vocab), the
+              last below it; (b) granite-moe-1b and mamba2-780m at full
+              width, 5 steps each through `launch.train.main`, the same
+              checks; each with step ms, tokens/s and peak HBM; (c) the
+              seven reduced configs' loss (1e-5 relative) and every
+              gradient (`TRAIN_GRAD_*`) in float32 on the card against
+              the CPU; (d) a NaN patch batch skipped with params and
+              optimizer state bit for bit, and a reduced qwen3 run
+              checkpointed at step 2 and resumed ending on the
+              uninterrupted run's params (1e-6 relative; bit for bit
+              printed); (e) `python -m repro_torch.examples.train_lm
+              --json` as a process at its default (reduced, 300 steps):
+              the loss falling, no skip
 
 The last three lines of standard output are the card's name and power
 limit, the kernels' JSON record, and {"ok": true, "device": {...}}.  Exits
@@ -224,6 +260,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 F32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12       # H100 SXM bfloat16 tensor cores, dense
 MAIN_ARGS = ["--sources", "2000000", "--destinations", "10000",
              "--nnz-per-row", "25", "--seed", "42",
              "--adaptive-continuation", "--tol-rel-dual", "1e-6",
@@ -3245,18 +3282,20 @@ def example_criterion(name, r):
             "0 ERROR, every request classified, refresh accepted")
 
 
-def run_example(name, extra):
-    """`python -m repro_torch.examples.<name> --json extra` in a process
-    group of its own (its children too), killed with them past the
-    timeout.  Exit 0 is required, except for a run of `CAP_RUNS` whose
-    solve ended at its cap (its record on the line before the FAIL line).
-    Returns (its JSON result, seconds, its other output lines)."""
+def run_example(name, extra, module=None, env_extra=None):
+    """`python -m repro_torch.examples.<name> --json extra` (or `-m module`)
+    in a process group of its own (its children too), killed with them past
+    the timeout, with `env_extra` added to its environment.  Exit 0 is
+    required, except for a run of `CAP_RUNS` whose solve ended at its cap
+    (its record on the line before the FAIL line).  Returns (its JSON
+    result, seconds, its other output lines)."""
     import signal
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               **(env_extra or {}))
     t0 = time.perf_counter()
     proc = subprocess.Popen(
-        [sys.executable, "-m", f"repro_torch.examples.{name}", "--json",
-         *extra], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        [sys.executable, "-m", module or f"repro_torch.examples.{name}",
+         "--json", *extra], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         text=True, env=env, cwd=ROOT, start_new_session=True)
     try:
         out, _ = proc.communicate(timeout=EXAMPLE_TIMEOUT_S)
@@ -3453,6 +3492,41 @@ def _decode_after_prefill(model, params, toks):
     return ref, logits.float()
 
 
+def decode_rates(model, params, gen, batches=LM_BATCHES):
+    """Decode ms a step (CUDA events, mean of `LM_TIMED_STEPS` after 3
+    warm-up steps) at positions 3.. of an `LM_MAX_SEQ` cache, tokens/s and
+    host enqueue ms a step, at each batch; with the bytes of the caches."""
+    import torch
+    from repro_torch.models.layers import tree_tensors
+    rates = {}
+    for B in batches:
+        caches = model.zero_caches(B, LM_MAX_SEQ, DEVICE)
+        tok = torch.randint(0, model.cfg.vocab, (B, 1),
+                            generator=gen).to(DEVICE)
+        with torch.inference_mode():
+            for t in range(3):
+                model.decode_step(params, caches, tok, t)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start.record()
+            for t in range(LM_TIMED_STEPS):
+                model.decode_step(params, caches, tok, 3 + t)
+            end.record()
+            t_enq = time.perf_counter() - t0
+            end.synchronize()
+        ms = start.elapsed_time(end) / LM_TIMED_STEPS
+        rates[B] = {"decode_ms_per_step": ms,
+                    "tokens_per_s": B / ms * 1e3,
+                    "host_enqueue_ms_per_step":
+                        t_enq / LM_TIMED_STEPS * 1e3,
+                    "cache_bytes": sum(t.numel() * t.element_size()
+                                       for t in tree_tensors(caches))}
+        del caches
+    return rates
+
+
 def lm_phase():
     """Phase 14: qwen3-1.7b at full width in bfloat16 on the card, drawn
     from a seeded generator: its parameter count, serve_lm's five requests
@@ -3533,29 +3607,7 @@ def lm_phase():
             f"lm (c): the card's float32 logits leave the CPU's: {rel}")
 
     # (d) decode ms a step (CUDA events) at each batch
-    rates = {}
-    for B in LM_BATCHES:
-        caches = model.zero_caches(B, LM_MAX_SEQ, DEVICE)
-        tok = torch.randint(0, cfg.vocab, (B, 1), generator=gen).to(DEVICE)
-        with torch.inference_mode():
-            for t in range(3):
-                model.decode_step(params, caches, tok, t)
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            start.record()
-            for t in range(LM_TIMED_STEPS):
-                model.decode_step(params, caches, tok, 3 + t)
-            end.record()
-            t_enq = time.perf_counter() - t0
-            end.synchronize()
-        ms = start.elapsed_time(end) / LM_TIMED_STEPS
-        rates[B] = {"decode_ms_per_step": ms,
-                    "tokens_per_s": B / ms * 1e3,
-                    "host_enqueue_ms_per_step":
-                        t_enq / LM_TIMED_STEPS * 1e3}
-        del caches
+    rates = decode_rates(model, params, gen)
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
     peak = torch.cuda.max_memory_allocated() - base
     for B, r in rates.items():
@@ -3571,6 +3623,454 @@ def lm_phase():
     del model, params
     torch.cuda.empty_cache()
     return rates
+
+
+# phase 15: every other family at its published width where one card holds
+# it (llama4-scout's 48 layers at 109 B params do not: its full width at 2
+# layers), jamba's 398 B reduced only
+FAMILY_FULL = ("granite-moe-1b-a400m", "mamba2-780m", "seamless-m4t-medium",
+               "pixtral-12b", "llama4-scout-17b-a16e")
+FAMILY_LAYERS = {"llama4-scout-17b-a16e": 2}
+FAMILY_REDUCED = ("granite-moe-1b-a400m", "llama4-scout-17b-a16e",
+                  "mamba2-780m", "jamba-1.5-large-398b",
+                  "seamless-m4t-medium", "pixtral-12b")
+# decode after T steps against prefill in float32 at full width (MoE with
+# the capacity factor raised to E, so that no token is dropped)
+FAMILY_DECODE_VS_PREFILL = ("granite-moe-1b-a400m", "mamba2-780m")
+FAMILY_FRAMES = 64          # seamless's frame stand-ins at prefill
+FAMILY_SRC_LEN = 16         # enc-dec cross caches in the card-vs-CPU check
+# the reduced configs' float32 logits, the card against the CPU, as a
+# fraction of the largest: 1e-4, as the CPU tests hold seamless's against
+# the reference (its sharp encoder softmax, tests/test_torch_lm_encdec.py)
+FAMILY_CPU_RTOL = 1e-4
+# phase 16: training
+TRAIN_FULL = (("granite-moe-1b-a400m", 5), ("mamba2-780m", 5))
+# the launcher's peak lr for the full-width runs: its default 3e-3 (sized
+# for reduced()) exceeds the embedding's init scale (std 0.0026 at
+# qwen3's vocabulary) and raised qwen3's loss 11.94 -> 12.02 in 10 steps;
+# at 1e-3 qwen3, granite and mamba2 fell, at 3e-4 and 1e-4 barely moved
+# (one H100, bfloat16 params, float32 AdamW state)
+TRAIN_LR = "1e-3"
+TRAIN_REDUCED = ("qwen3-1.7b",) + FAMILY_REDUCED
+# each gradient, the card against the CPU, at this fraction of its largest
+# entry: the card sums in other orders, and float32 order alone moves the
+# reduced models' gradients by up to 3.3e-4 (the port against the
+# reference on a CPU, tests/torch_lm_floor.py: jamba 3.3e-4, granite
+# 2.4e-4; llama4 3.2e-4 card against CPU).  Reduced seamless's stacked
+# init (fan-in 2) gives attention scores of std ~60 and near one-hot
+# softmaxes, through which a score's rounding moves the attention
+# weights' gradients: the reference sits up to 3.4e-3 from float64 on the
+# CPU, the card 1.2e-2 from the CPU (dec/self/wk; its loss 1.4e-6).  A MoE
+# router's top-k is discrete: a token whose top two experts' probabilities
+# tie to float32 rounding goes to another expert in the other order, and
+# moves that expert's gradient by its share (jamba's blk7/moe/wg: 1.3e-3,
+# its loss 3.0e-7)
+TRAIN_GRAD_RTOL = {"seamless-m4t-medium": 5e-2}
+TRAIN_GRAD_DEFAULT = 1e-3
+TRAIN_GRAD_MOE = 1e-2
+
+
+def family_inputs(cfg, B, T, gen, frames=FAMILY_FRAMES):
+    """Seeded tokens (B, T) and the config's frontend stand-ins: frames for
+    an enc-dec, its `n_frontend_tokens` patches for a VLM."""
+    import torch
+    batch = {"tokens": torch.randint(0, cfg.vocab, (B, T), generator=gen)}
+    if cfg.frontend == "frames":
+        batch["frames"] = torch.randn(B, frames, cfg.d_model, generator=gen)
+    elif cfg.frontend == "patches":
+        batch["patches"] = torch.randn(B, cfg.n_frontend_tokens or 16,
+                                       cfg.d_model, generator=gen)
+    return batch
+
+
+def family_logits(model, params, batch, src_len=4096):
+    """(prefill logits with the batch's frontend stand-ins, logits after
+    decoding its tokens one at a time from zero caches), float32."""
+    import torch
+    toks = batch["tokens"]
+    B, T = toks.shape
+    caches = model.zero_caches(B, T, toks.device, src_len=src_len)
+    with torch.inference_mode():
+        pre = model.prefill(params, batch).float()
+        for t in range(T):
+            logits, caches = model.decode_step(params, caches,
+                                               toks[:, t:t + 1], t)
+    return pre, logits.float()
+
+
+def _draw(cfg, moe_impl="einsum"):
+    """A model of cfg with its params drawn on the card from seed 0, and
+    the params' count and bytes."""
+    import torch
+    from repro_torch.models import build_model
+    model = build_model(cfg, moe_impl=moe_impl)
+    params = model.init(torch.Generator(DEVICE).manual_seed(0))
+    torch.cuda.synchronize()
+    return (model, params, sum(p.numel() for p in params.values()),
+            sum(p.numel() * p.element_size() for p in params.values()))
+
+
+def _expert_bytes(params):
+    return sum(p.numel() * p.element_size() for k, p in params.items()
+               if "/moe/w" in k)
+
+
+def family_full(arch, gen):
+    """Phase 15 (a), (b), (d) for one config at its published width."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.examples.serve_lm import requests
+    from repro_torch.models import build_model
+    from repro_torch.serving.engine import Engine, Request
+    t_arch = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    cfg = get_config(arch)
+    if arch in FAMILY_LAYERS:
+        cfg = dataclasses.replace(cfg, n_layers=FAMILY_LAYERS[arch])
+    model, params, n, nbytes = _draw(cfg)
+    log(f"families: {arch} ({cfg.family}) at full width, {cfg.n_layers} of "
+        f"{get_config(arch).n_layers} layers, d_model {cfg.d_model}, "
+        f"vocabulary {cfg.vocab}, {cfg.n_experts} experts top-{cfg.top_k}"
+        f", ssm state {cfg.ssm_state}, {cfg.n_enc_layers} encoder layers, "
+        f"frontend {cfg.frontend}: {n} parameters, {nbytes} bytes "
+        f"({cfg.param_dtype})")
+
+    # (a) serve_lm's five requests at batch 4, max_seq 64, greedy
+    rec = {"arch": arch, "params": n, "param_bytes": nbytes,
+           "layers": cfg.n_layers}
+    impls = ("einsum", "gather") if cfg.n_experts else ("einsum",)
+    for impl in impls:
+        m = model if impl == "einsum" else build_model(cfg, moe_impl=impl)
+        if m is not model:
+            m.load_params(params)
+        eng = Engine(m, params, batch=4, max_seq=LM_MAX_SEQ)
+        t0 = time.perf_counter()
+        done = eng.generate(requests())
+        dt = time.perf_counter() - t0
+        total = sum(len(r.out) for r in done)
+        alone = eng.generate([Request(prompt=list(done[0].prompt),
+                                      max_new=done[0].max_new)])
+        same = alone[0].out == done[0].out
+        rec[f"serve_{impl}"] = [r.out for r in done]
+        log(f"families (a) {arch} [{impl}] serve_lm's requests at batch 4:"
+            f" {total} tokens in {dt:.3f} s ({total / dt:.1f} tokens/s, "
+            f"{eng.steps} steps, {eng.step_seconds / eng.steps * 1e3:.3f} ms"
+            f" a step with its host read); outputs {[r.out for r in done]};"
+            f" request 0 alone the same: {same}")
+        require([len(r.out) for r in done]
+                == [r.max_new for r in requests()],
+                f"families (a) {arch}: a request got the wrong number of "
+                f"tokens")
+        require(all(0 <= t < cfg.padded_vocab for r in done for t in r.out),
+                f"families (a) {arch}: a token outside the vocabulary")
+        if not cfg.n_experts:   # capacity drops make MoE depend on mates
+            require(same, f"families (a) {arch}: batch composition changed "
+                    f"request 0's tokens")
+        del eng
+    if cfg.n_experts:
+        log(f"families (a) {arch}: einsum's and gather's tokens equal: "
+            f"{rec['serve_einsum'] == rec['serve_gather']}")
+
+    # (b) decode after T steps against prefill; frontend stand-ins
+    batch = {k: v.to(DEVICE) for k, v in family_inputs(
+        cfg, 2, LM_DECODE_T, gen).items()}
+    if arch in FAMILY_DECODE_VS_PREFILL:
+        only = {"tokens": batch["tokens"]}
+        raise_cf = ({"moe_capacity_factor": float(cfg.n_experts)}
+                    if cfg.n_experts else {})
+        m16 = build_model(dataclasses.replace(cfg, **raise_cf))
+        ref16, dec16 = family_logits(m16, m16.load_params(params), only)
+        diff16 = float((dec16 - ref16).abs().max())
+        del m16
+        cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                    compute_dtype="float32", **raise_cf)
+        m32 = build_model(cfg32)
+        p32 = m32.load_params({k: v.float() for k, v in params.items()})
+        ref, dec = family_logits(m32, p32, only)
+        diff = float((dec - ref).abs().max())
+        close = bool(torch.allclose(dec, ref, atol=2e-2, rtol=1e-2))
+        cf = raise_cf.get("moe_capacity_factor", "-")
+        log(f"families (b) {arch} decode after {LM_DECODE_T} steps against "
+            f"prefill (batch 2, capacity factor {cf}): float32 max |diff| "
+            f"{diff:.6f} over logits up to "
+            f"{float(ref.abs().max()):.3f}, within atol 2e-2 / rtol 1e-2: "
+            f"{close}; bfloat16 max |diff| {diff16:.6f}")
+        require(close, f"families (b) {arch}: decode after T steps is not "
+                f"prefill's at atol 2e-2 / rtol 1e-2 (float32)")
+        rec["decode_vs_prefill_f32"], rec["decode_vs_prefill_bf16"] = \
+            diff, diff16
+        del m32, p32, ref, dec
+        torch.cuda.empty_cache()
+    if cfg.frontend:
+        key = "frames" if cfg.frontend == "frames" else "patches"
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = model.prefill(params, batch).float()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            plain = (model.prefill(params, {"tokens": batch["tokens"],
+                                            "frames": batch["frames"] * 0})
+                     if key == "frames" else
+                     model.prefill(params, {"tokens": batch["tokens"]}))
+        moved = float((got - plain.float()).abs().max())
+        log(f"families (b) {arch} prefill with {batch[key].shape[1]} "
+            f"{key} (batch 2, {LM_DECODE_T} tokens): logits "
+            f"{tuple(got.shape)}, finite {bool(got.isfinite().all())}, up "
+            f"to {float(got.abs().max()):.3f}, in {dt * 1e3:.1f} ms; "
+            f"without the {key} they move by up to {moved:.3f}")
+        require(bool(got.isfinite().all()) and tuple(got.shape)
+                == (2, cfg.padded_vocab) and moved > 0,
+                f"families (b) {arch}: prefill with {key} failed")
+
+    # (d) decode ms a step at batch 4 and 32, beside the bytes bound
+    rates = decode_rates(model, params, gen)
+    expert = _expert_bytes(params)
+    peak = torch.cuda.max_memory_allocated() - base
+    for B, r in rates.items():
+        w_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        c_ms = (nbytes + r["cache_bytes"]) / HBM_BYTES_PER_S * 1e3
+        a_ms = ((nbytes - expert + expert * cfg.top_k / max(cfg.n_experts, 1))
+                / HBM_BYTES_PER_S * 1e3)
+        active = ("" if not expert else
+                  f", {a_ms:.4f} ms with only top-{cfg.top_k} of "
+                  f"{cfg.n_experts} experts read")
+        log(f"families (d) {arch} decode at batch {B}: "
+            f"{r['decode_ms_per_step']:.4f} ms a step (CUDA events, mean of "
+            f"{LM_TIMED_STEPS}), {r['tokens_per_s']:.1f} tokens/s, host "
+            f"enqueue {r['host_enqueue_ms_per_step']:.4f} ms a step; bound "
+            f"{w_ms:.4f} ms (bytes: every weight read once a step), "
+            f"{c_ms:.4f} ms with the caches' {r['cache_bytes']} bytes read "
+            f"too{active}")
+        r.update(weights_bound_ms=w_ms, caches_bound_ms=c_ms)
+    rec["decode"] = rates
+    rec["peak_hbm_bytes"] = peak
+    log(f"families: {arch} peak HBM allocated {peak} bytes (less the "
+        f"{base} earlier phases held); {time.perf_counter() - t_arch:.1f} s")
+    del model, params
+    torch.cuda.empty_cache()
+    return rec
+
+
+def families_reduced(gen):
+    """Phase 15 (c): every non-dense reduced config in float32, prefill and
+    decode on the card against the CPU on the same weights.  Jamba's one
+    period at d_model 8,192 holds four 16-expert MoE layers of ~9.7 B
+    params each, more than the card: it runs reduced only."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    out = {}
+    for arch in FAMILY_REDUCED:
+        cfg = get_config(arch).reduced()
+        m_cpu, m_gpu = build_model(cfg), build_model(cfg)
+        p_cpu = m_cpu.init(torch.Generator().manual_seed(0))
+        p_gpu = m_gpu.load_params({k: v.to(DEVICE) for k, v in p_cpu.items()})
+        batch = family_inputs(cfg, 2, LM_DECODE_T, gen, frames=16)
+        rel = []
+        for a, b in zip(
+                family_logits(m_gpu, p_gpu, {k: v.to(DEVICE) for k, v in
+                                             batch.items()}, FAMILY_SRC_LEN),
+                family_logits(m_cpu, p_cpu, batch, FAMILY_SRC_LEN)):
+            rel.append(float((a.cpu() - b).abs().max() / b.abs().max()))
+        out[arch] = rel
+        log(f"families (c) reduced {arch} in float32, the card against the "
+            f"CPU: prefill max |diff| / max |logit| {rel[0]:.3e}, after "
+            f"{LM_DECODE_T} decode steps {rel[1]:.3e} (held at "
+            f"{FAMILY_CPU_RTOL})")
+        require(max(rel) <= FAMILY_CPU_RTOL,
+                f"families (c) {arch}: the card's float32 logits leave the "
+                f"CPU's: {rel}")
+    return out
+
+
+def families_phase():
+    """Phase 15: the MoE, mamba2, hybrid, encoder-decoder and VLM families
+    served on the card (see the module docstring)."""
+    import torch
+    gen = torch.Generator().manual_seed(15)
+    recs = [family_full(arch, gen) for arch in FAMILY_FULL]
+    families_reduced(gen)
+    return recs
+
+
+def train_reduced_grads():
+    """Phase 16 (c): the reduced configs' loss and every gradient in
+    float32, the card against the CPU on the same weights and batch."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import stream_for
+    from repro_torch.models import build_model
+    from repro_torch.training.trainer import value_and_grad
+    for arch in TRAIN_REDUCED:
+        cfg = get_config(arch).reduced()
+        model = build_model(cfg)
+        p_cpu = model.init(torch.Generator().manual_seed(0))
+        batch = {k: torch.from_numpy(v)
+                 for k, v in stream_for(cfg, 4, 32).next().items()}
+        l_cpu, g_cpu = value_and_grad(model.loss, p_cpu, batch)
+        l_gpu, g_gpu = value_and_grad(
+            model.loss, {k: v.to(DEVICE) for k, v in p_cpu.items()},
+            {k: v.to(DEVICE) for k, v in batch.items()})
+        loss_rel = abs(float(l_gpu) - float(l_cpu)) / abs(float(l_cpu))
+        worst, leaf = max((float((g_gpu[k].cpu() - g).abs().max()
+                                 / g.abs().max().clamp(min=1e-30)), k)
+                          for k, g in g_cpu.items())
+        tol = TRAIN_GRAD_RTOL.get(arch, TRAIN_GRAD_MOE if cfg.n_experts
+                                  else TRAIN_GRAD_DEFAULT)
+        log(f"train (c) reduced {arch} in float32, the card against the "
+            f"CPU: loss {float(l_gpu):.6f} vs {float(l_cpu):.6f} (relative "
+            f"{loss_rel:.3e}, held at 1e-5), worst gradient {leaf} at "
+            f"{worst:.3e} of its largest entry (held at {tol})")
+        require(loss_rel <= 1e-5 and worst <= tol,
+                f"train (c) {arch}: the card's loss or gradients leave the "
+                f"CPU's")
+
+
+def train_guard_and_resume():
+    """Phase 16 (d): on the card, a poisoned batch (NaN patch stand-ins,
+    reduced pixtral) is skipped with the params and optimizer state bit for
+    bit; a reduced qwen3 run checkpointed at step 2 and resumed ends on the
+    uninterrupted run's params, held at 1e-6 relative (the embedding's
+    backward accumulates with float32 atomics, whose order does not
+    repeat), and whether they came out bit for bit is printed."""
+    import tempfile
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import stream_for
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamW, cosine_schedule
+    from repro_torch.training.trainer import Trainer, make_train_step
+    cfg = get_config("pixtral-12b").reduced()
+    model = build_model(cfg)
+    opt = AdamW(state_dtype="float32")
+    with tempfile.TemporaryDirectory() as d:
+        tr = Trainer(model, opt, stream_for(cfg, 4, 32), ckpt_dir=d,
+                     device=DEVICE)
+        state = tr.run(1, resume=False)
+    batch = {k: torch.from_numpy(v).to(DEVICE)
+             for k, v in stream_for(cfg, 4, 32).next().items()}
+    batch["patches"][0, 0, 0] = float("nan")
+    new, m = make_train_step(model.loss, opt, lambda s: 1e-3)(state, batch)
+    same = all(torch.equal(new.params[k], state.params[k])
+               for k in state.params) and all(
+        torch.equal(a[k], b[k]) for a, b in
+        ((new.opt_state.mu, state.opt_state.mu),
+         (new.opt_state.nu, state.opt_state.nu)) for k in a)
+    log(f"train (d) NaN guard on the card: poisoned batch loss "
+        f"{float(m.loss)}, skipped {float(m.skipped)}, params and "
+        f"optimizer state bit for bit: {same}")
+    require(float(m.skipped) == 1.0 and same,
+            "train (d): the NaN guard let a poisoned batch through")
+
+    cfg = get_config("qwen3-1.7b").reduced()
+    model = build_model(cfg)
+    params = model.init(torch.Generator(DEVICE).manual_seed(0))
+    with tempfile.TemporaryDirectory() as d:
+        def trainer(sub, every):
+            return Trainer(model, opt, stream_for(cfg, 8, 128),
+                           ckpt_dir=os.path.join(d, sub), ckpt_every=every,
+                           lr_fn=cosine_schedule(3e-3, 2, 8), device=DEVICE)
+        whole = trainer("a", 100)
+        end = whole.run(4, state=whole.state_from(params), resume=False)
+        first = trainer("b", 2)
+        first.run(2, state=first.state_from(params), resume=False)
+        second = trainer("b", 100)
+        resumed = second.run(4, state=second.state_from(params))
+    rel = max(float((resumed.params[k].float() - v.float()).abs().max()
+                    / v.float().abs().max()) for k, v in end.params.items())
+    bits = all(torch.equal(resumed.params[k], v)
+               for k, v in end.params.items())
+    log(f"train (d) reduced qwen3 checkpointed at step 2 and resumed to "
+        f"step 4 on the card: losses {[h['loss'] for h in second.history]} "
+        f"vs {[h['loss'] for h in whole.history[2:]]}; params' worst "
+        f"relative difference {rel:.3e} (held at 1e-6), bit for bit: {bits}")
+    require(int(resumed.step) == 4 and rel <= 1e-6,
+            "train (d): the resumed run left the uninterrupted one")
+
+
+def train_bound_ms(arch, n_params, tokens):
+    """The least time a training step could take: 8 operations a token an
+    active parameter (forward 2, backward 4, remat's second forward 2) at
+    the bfloat16 peak; a MoE layer's experts count k of E.  Leaves out
+    attention's S^2 terms (S = 128) and the optimizer (bytes)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    active = n_params
+    if cfg.n_experts:
+        moe = sum(cfg.layer_kind(i)[1] == "moe" for i in range(cfg.n_layers))
+        expert = moe * 3 * cfg.n_experts * cfg.d_model * cfg.d_ff
+        active = n_params - expert + expert * cfg.top_k / cfg.n_experts
+    return 8 * active * tokens / BF16_OPS_PER_S * 1e3
+
+
+def _train_checks(what, out, steps):
+    losses = out["losses"]
+    require(len(losses) == steps and out["skipped"] == 0
+            and all(math.isfinite(x) for x in losses)
+            and losses[-1] < losses[0],
+            f"train {what}: want {steps} finite steps, none skipped, the "
+            f"loss falling: {out}")
+
+
+def train_phase():
+    """Phase 16: training on the card (see the module docstring)."""
+    import tempfile
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        out, seconds, lines = run_example(
+            "train", ["--arch", LM_ARCH, "--full-config", "--steps", "10",
+                      "--lr", TRAIN_LR, "--ckpt-dir", d],
+            module="repro_torch.launch.train")
+        vocab = get_config(LM_ARCH).vocab
+        log(f"train (a) python -m repro_torch.launch.train --arch {LM_ARCH} "
+            f"--full-config --steps 10 --lr {TRAIN_LR} (batch "
+            f"{out['batch']} x seq {out['seq']}, {out['param_dtype']} params, "
+            f"{out['optstate_dtype']} AdamW state, remat {out['remat']}, "
+            f"{out['params']} parameters): {lines[-1]}; losses "
+            f"{out['losses']} from ln(vocab) = {math.log(vocab):.4f}; first "
+            f"step {out['first_step_ms']:.1f} ms, then {out['step_ms']:.2f} "
+            f"ms a step (median, host clock to the loss's read; bound "
+            f"{train_bound_ms(LM_ARCH, out['params'], 8 * 128):.2f} ms, "
+            f"operations), {out['tokens_per_s']:.1f} tokens/s, peak HBM "
+            f"{out['peak_hbm_bytes']} bytes; {seconds:.1f} s as a process")
+        _train_checks("(a)", out, 10)
+        require(abs(out["losses"][0] - math.log(vocab)) < 1.0,
+                f"train (a): the first loss is not near ln(vocab): {out}")
+    for arch, steps in TRAIN_FULL:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with tempfile.TemporaryDirectory() as d:
+            t0 = time.perf_counter()
+            out = train.main(["--arch", arch, "--full-config", "--steps",
+                              str(steps), "--lr", TRAIN_LR, "--ckpt-dir", d])
+        log(f"train (b) {arch} at full width, {steps} steps, lr {TRAIN_LR} "
+            f"(batch {out['batch']} x seq {out['seq']}, {out['param_dtype']} "
+            f"params, {out['params']} parameters): losses {out['losses']}; "
+            f"first step {out['first_step_ms']:.1f} ms, then "
+            f"{out['step_ms']:.2f} ms a step (bound "
+            f"{train_bound_ms(arch, out['params'], 8 * 128):.2f} ms, "
+            f"operations), {out['tokens_per_s']:.1f} tokens/s, peak HBM "
+            f"{out['peak_hbm_bytes']} bytes; {time.perf_counter() - t0:.1f} s")
+        _train_checks(f"(b) {arch}", out, steps)
+    torch.cuda.empty_cache()
+    train_reduced_grads()
+    train_guard_and_resume()
+    with tempfile.TemporaryDirectory() as d:
+        out, seconds, lines = run_example("train_lm", [],
+                                          env_extra={"TMPDIR": d})
+    log(f"train (e) python -m repro_torch.examples.train_lm --json: "
+        f"{' / '.join(lines[-4:])}; {out['step_ms']:.2f} ms a step, "
+        f"{out['tokens_per_s']:.1f} tokens/s; {seconds:.1f} s as a process")
+    require(len(out["losses"]) == 300 and out["skipped"] == 0
+            and out["last10"] < out["first10"],
+            f"train (e): train_lm did not train: {out}")
 
 
 def reset_counters():
@@ -3854,6 +4354,14 @@ def main() -> int:
     t_lm = time.perf_counter()
     lm_phase()
     log(f"phase 14 (lm): {time.perf_counter() - t_lm:.1f} s")
+
+    # 15. the other families served; 16. training
+    t_fam = time.perf_counter()
+    families_phase()
+    log(f"phase 15 (families): {time.perf_counter() - t_fam:.1f} s")
+    t_train = time.perf_counter()
+    train_phase()
+    log(f"phase 16 (train): {time.perf_counter() - t_train:.1f} s")
 
     kernels = []
     for name, rec in records.items():

@@ -5,7 +5,8 @@
     renamed, so a crash mid-write never corrupts the latest checkpoint;
   * resume: `restore_latest` / `restore_flat` read the newest committed
     step;
-  * arrays are host numpy in `arrays.npz` under flatten keys
+  * arrays are host numpy in `arrays.npz` under flatten keys (a bfloat16
+    tensor as its exact float32 values, cast back on restore)
     ('.lam', '.extra/.l_diag' for a NamedTuple state, '0', 'a' for tuples
     and dicts), with `meta.json` holding the step, the structure, the
     array count and the caller's `extra` dict.
@@ -49,6 +50,8 @@ def _walk(tree, prefix: str = "") -> Iterator[Tuple[str, Any]]:
 
 def _host(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
+        if leaf.dtype == torch.bfloat16:    # numpy has none; exact in float32
+            leaf = leaf.float()
         return leaf.detach().cpu().numpy()
     return np.asarray(leaf)
 

@@ -87,8 +87,8 @@ def lm_params_from_numpy(params: Mapping[str, np.ndarray], cfg,
     """An LM's params by path (the reference's `model.init(...)` leaves as
     host arrays) -> tensors on `device`, each in its `param_defs()` dtype.
     `Model.load_params` checks the paths and shapes."""
-    from .models.transformer import lm_param_defs
-    defs = lm_param_defs(cfg)
+    from .models.model import param_defs
+    defs = param_defs(cfg)
     return {path: _host_tensor(a).to(
                 device=device,
                 dtype=defs[path].dtype if path in defs else None)

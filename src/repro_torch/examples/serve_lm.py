@@ -3,11 +3,14 @@ queue with greedy sampling and fixed-capacity batches; the port of the
 reference's `examples/serve_lm.py`.
 
     PYTHONPATH=src python -m repro_torch.examples.serve_lm [--arch qwen3-1.7b]
-        [--batch 4] [--max-seq 64] [--full] [--device cpu] [--json]
+        [--batch 4] [--max-seq 64] [--full] [--moe-impl einsum|gather]
+        [--device cpu] [--json]
 
-Serves the reduced config unless `--full` asks for the published width.
-The weights are drawn from a seeded generator on the device.  Dense
-configs only (ROADMAP item 16).
+Serves any config of the zoo, the reduced one unless `--full` asks for the
+published width.  The weights are drawn from a seeded generator on the
+device.  A MoE config's capacity drops make a decoded token depend on its
+batch mates, as in the reference, whose demo then fails its
+batch-composition check just as this one does.
 """
 import time
 
@@ -39,12 +42,15 @@ def main(argv=None) -> dict:
     ap.add_argument("--max-seq", type=int, default=64)
     ap.add_argument("--full", action="store_true",
                     help="the config at its published width, not reduced()")
+    ap.add_argument("--moe-impl", default="einsum",
+                    choices=["einsum", "gather"],
+                    help="the MoE dispatch (MoE configs only)")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
     cfg = get_config(args.arch)
     if not args.full:
         cfg = cfg.reduced()
-    model = build_model(cfg)
+    model = build_model(cfg, moe_impl=args.moe_impl)
     params = model.init(torch.Generator(dev).manual_seed(0))
     n_params = sum(p.numel() for p in params.values())
     engine = Engine(model, params, batch=args.batch, max_seq=args.max_seq)
@@ -66,7 +72,8 @@ def main(argv=None) -> dict:
     again = engine.generate([Request(prompt=[5, 17, 42], max_new=12)])
     invariant = again[0].out == done[0].out
     result = {"example": "serve_lm", "device": str(dev), "arch": args.arch,
-              "full": args.full, "params": n_params, "batch": args.batch,
+              "full": args.full, "moe_impl": args.moe_impl,
+              "params": n_params, "batch": args.batch,
               "max_seq": args.max_seq, "tokens": [r.out for r in done],
               "new_tokens": total_new, "seconds": dt,
               "tokens_per_s": total_new / dt, "decode_steps": steps,

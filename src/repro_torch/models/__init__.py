@@ -1,6 +1,6 @@
-"""The port's LM models (counterpart of `repro.models`): the dense
-decoders' serving path.  MoE, mamba, encoder–decoder and the VLM frontend
-are still to port (ROADMAP item 16)."""
+"""The port's LM models (counterpart of `repro.models`): every family of
+the zoo (dense, MoE, mamba2, the attention/mamba hybrid, encoder–decoder
+and the VLM patch stub), served and trained."""
 from .config import SHAPES, ModelConfig, ShapeCell, cell_applicable
 from .model import Model, build_model
 

@@ -1,6 +1,6 @@
 """Attention: GQA/MQA with RoPE (+partial) and qk_norm, q-chunk-streamed
-causal attention for prefill, and one-token decode against a (B, S, kv, d)
-cache; port of `repro.models.attention` on one device.
+self- and cross-attention for train/prefill, and one-token decode against a
+(B, S, kv, d) cache; port of `repro.models.attention` on one device.
 
 With no mesh the reference takes its head-parallel branch
 (`heads_shardable` is True), so prefill repeats K/V to the full head count.
@@ -17,7 +17,7 @@ import torch
 
 from .config import ModelConfig
 from .layers import (ParamDef, ParamDefs, ShapeDtype, apply_rope,
-                     host_scalar, rms_norm, rope_tables)
+                     host_scalar, remat, rms_norm, rope_tables)
 
 NEG_INF = -1e30
 
@@ -103,48 +103,57 @@ def _gqa_out(probs, v):
 
 
 def attention(cfg: ModelConfig, p: Mapping[str, torch.Tensor],
-              x: torch.Tensor, prefix: str = "attn", causal: bool = True,
+              x: torch.Tensor, prefix: str = "attn",
+              kv_x: Optional[torch.Tensor] = None, causal: bool = True,
               positions: Optional[torch.Tensor] = None,
               rope: bool = True, tables=None) -> torch.Tensor:
-    """Causal self-attention for prefill, streamed over query chunks of
+    """Full attention for train/prefill, streamed over query chunks of
     `cfg.attn_q_chunk`: each chunk's softmax is exact (its whole key row is
-    there), so peak memory is (B, H, qc, S).  A loop stands in for the
-    reference's scan (serving has no backward, so nothing to recompute);
-    padded query positions sit at S + 1, as the reference pads them.
-    `tables`, when given, is `self_tables` at the default positions."""
+    there), so peak memory is (B, H, qc, Sk).  With `kv_x` it is
+    cross-attention (keys and values from kv_x, no rope, no mask).  A loop
+    stands in for the reference's scan; each chunk is recomputed in the
+    backward (`remat`), so its float32 scores are never stored.  Padded
+    query positions sit at Sk + 1, as the reference pads them.  `tables`,
+    when given, is `self_tables` at the default positions."""
     B, S, D = x.shape
-    kv_positions = torch.arange(S, device=x.device)[None, :]
+    cross = kv_x is not None
+    kv_src = kv_x if cross else x
+    Sk = kv_src.shape[1]
+    kv_positions = torch.arange(Sk, device=x.device)[None, :]
     if positions is None:
-        positions = kv_positions
+        positions = torch.arange(S, device=x.device)[None, :]
     else:
         tables = None
-    q, k, v = _project_qkv(cfg, p, x, x, prefix, positions, kv_positions,
-                           rope=rope, tables=tables)
+    q, k, v = _project_qkv(cfg, p, x, kv_src, prefix, positions, kv_positions,
+                           rope=rope and not cross, tables=tables)
     scale = _scale(cfg)
     G = cfg.n_heads // cfg.n_kv
     if G > 1:
         k = torch.repeat_interleave(k, G, dim=2)
         v = torch.repeat_interleave(v, G, dim=2)
-    kf = k.float().permute(0, 2, 3, 1)                      # (B, H, d, S)
-    vh = v.permute(0, 2, 1, 3)                              # (B, H, S, d)
+    kf = k.float().permute(0, 2, 3, 1)                      # (B, H, d, Sk)
+    vh = v.permute(0, 2, 1, 3)                              # (B, H, Sk, d)
     qc = min(cfg.attn_q_chunk, S)
     n = -(-S // qc)
     pad = n * qc - S
     if pad:
         q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, pad))
-        positions = torch.nn.functional.pad(positions, (0, pad), value=S + 1)
+        positions = torch.nn.functional.pad(positions, (0, pad),
+                                            value=Sk + 1)
     positions = positions.expand(B, n * qc)
-    kv_pos = torch.arange(S, device=x.device)
-    outs = []
-    for c in range(n):
-        qb = q[:, c * qc:(c + 1) * qc]
-        pb = positions[:, c * qc:(c + 1) * qc]
-        scores = (qb.float().permute(0, 2, 1, 3) @ kf) * scale   # (B,H,qc,S)
-        if causal:
+    kv_pos = torch.arange(Sk, device=x.device)
+    masked = causal and not cross
+
+    def chunk_out(qb, pb):
+        scores = (qb.float().permute(0, 2, 1, 3) @ kf) * scale  # (B,H,qc,Sk)
+        if masked:
             mask = pb[:, None, :, None] >= kv_pos[None, None, None, :]
             scores = torch.where(mask, scores, NEG_INF)
         probs = torch.softmax(scores, dim=-1).to(cfg.cdtype)
-        outs.append((probs @ vh).permute(0, 2, 1, 3))
+        return (probs @ vh).permute(0, 2, 1, 3)
+
+    outs = [remat(chunk_out, q[:, c * qc:(c + 1) * qc],
+                  positions[:, c * qc:(c + 1) * qc]) for c in range(n)]
     out = torch.cat(outs, dim=1)[:, :S]
     return _merge_heads(out, p[f"{prefix}/wo"].to(cfg.cdtype))
 

@@ -1,6 +1,5 @@
-"""Shared neural layers: params-as-data, norms, RoPE, gated MLPs; port of
-`repro.models.layers` (serving only: `chunked_xent` belongs to training,
-ROADMAP item 16c).
+"""Shared neural layers: params-as-data, norms, RoPE, gated MLPs, chunked
+xent; port of `repro.models.layers`.
 
 Models are functions over flat param dicts ("path" -> tensor).  Each param
 is declared once as a ParamDef carrying shape, dtype, init scale and
@@ -9,11 +8,13 @@ the reference's weights carry across by name (`convert.lm_params_from_numpy`).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Mapping, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .config import ModelConfig
 
@@ -33,6 +34,37 @@ class ShapeDtype(NamedTuple):
     `jax.ShapeDtypeStruct`)."""
     shape: Tuple[int, ...]
     dtype: torch.dtype
+
+
+def tree_tensors(tree):
+    """Every tensor of a cache tree (tuples of dicts, or the enc-dec
+    {"self": ..., "cross": ...}), in a fixed order."""
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from tree_tensors(tree[k])
+    else:
+        for child in tree:
+            yield from tree_tensors(child)
+
+
+def zeros_like_shapes(tree, device):
+    """A tree of `ShapeDtype`s -> the same tree of zeroed tensors."""
+    if isinstance(tree, ShapeDtype):
+        return torch.zeros(tree.shape, dtype=tree.dtype, device=device)
+    if isinstance(tree, dict):
+        return {k: zeros_like_shapes(v, device) for k, v in tree.items()}
+    return tuple(zeros_like_shapes(v, device) for v in tree)
+
+
+def remat(fn, *args):
+    """fn(*args), its activations recomputed in the backward (the
+    reference's `jax.checkpoint`) when autograd is recording; a plain call
+    otherwise (serving, under `inference_mode`)."""
+    if torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def init_params(defs: ParamDefs, generator: torch.Generator
@@ -148,7 +180,7 @@ def mlp_apply(cfg: ModelConfig, p: Mapping[str, torch.Tensor],
 
 
 # ---------------------------------------------------------------------------
-# embeddings and the last position's logits
+# embeddings, the last position's logits and chunked softmax cross-entropy
 # ---------------------------------------------------------------------------
 def embed_defs(cfg: ModelConfig) -> ParamDefs:
     V = cfg.padded_vocab
@@ -172,7 +204,10 @@ def embed_tokens(cfg: ModelConfig, p, tokens: torch.Tensor) -> torch.Tensor:
     is taken in float32 and cast, as the reference does)."""
     emb = p["embed/tok"].to(cfg.cdtype)
     scale = torch.sqrt(torch.tensor(float(cfg.d_model), dtype=torch.float32))
-    return emb[tokens] * host_scalar(scale, cfg.cdtype)
+    # F.embedding, not indexing: its backward sums a row's gradients in a
+    # fixed order (indexing's `index_put_` accumulate did not repeat on
+    # several CPU threads), so a resumed training run repeats bit for bit
+    return F.embedding(tokens, emb) * host_scalar(scale, cfg.cdtype)
 
 
 def _out_matrix(cfg: ModelConfig, p) -> torch.Tensor:
@@ -185,3 +220,39 @@ def logits_last(cfg: ModelConfig, p, h: torch.Tensor) -> torch.Tensor:
     """Logits over the padded vocabulary for the last position only: h
     (B, D) -> (B, padded_vocab)."""
     return h @ _out_matrix(cfg, p)
+
+
+def _chunk_loss(cfg: ModelConfig, out_w, hb, lb):
+    """One chunk's summed cross-entropy over its valid labels, and their
+    count, both float32."""
+    logits = (hb @ out_w).float()                   # (B, C, V)
+    lse = torch.logsumexp(logits, dim=-1)
+    lbl = lb.clamp(0, cfg.vocab - 1).long()
+    picked = torch.gather(logits, -1, lbl[..., None])[..., 0]
+    valid = (lb >= 0).float()
+    return ((lse - picked) * valid).sum(), valid.sum()
+
+
+def chunked_xent(cfg: ModelConfig, p, h: torch.Tensor,
+                 labels: torch.Tensor) -> torch.Tensor:
+    """Mean next-token cross-entropy without materializing (B, S, V).
+
+    A loop over sequence chunks of `cfg.xent_chunk` (the reference's scan):
+    per chunk the logits, their logsumexp and the label's logit, summed in
+    float32; labels of -1 count for nothing.  Each chunk is recomputed in
+    the backward (`remat`), so the (B, C, V) logits are never stored."""
+    B, S, D = h.shape
+    C = min(cfg.xent_chunk, S)
+    n = -(-S // C)
+    pad = n * C - S
+    if pad:
+        h = F.pad(h, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad), value=-1)
+    out_w = _out_matrix(cfg, p)
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c in range(n):
+        t, k = remat(functools.partial(_chunk_loss, cfg), out_w,
+                     h[:, c * C:(c + 1) * C], labels[:, c * C:(c + 1) * C])
+        tot, cnt = tot + t, cnt + k
+    return tot / cnt.clamp(min=1.0)

@@ -1,21 +1,25 @@
-"""build_model(config) — the serving façade over the dense decoders; port of
+"""build_model(config) — one façade over the zoo; port of
 `repro.models.model`.
 
 `Model` is an `nn.Module` whose parameters are registered under the
-reference's `param_defs()` paths ("blk0/attn/wq", ...), so the reference's
-weights carry across as a copy by name (`convert.lm_params_from_numpy`).
-It keeps the reference's functional surface, the params passed in:
+reference's `param_defs()` paths ("blk0/attn/wq", "dec/cross/wk", ...), so
+the reference's weights carry across as a copy by name
+(`convert.lm_params_from_numpy`).  It keeps the reference's functional
+surface, the params passed in:
 
   param_defs()                  single source of truth (shape/dtype/logical)
   init(generator)               draw the params on the generator's device
+  loss(params, batch)           train objective (next-token xent [+ moe aux])
   prefill(params, batch)        full-context forward -> last-position logits
   decode_step(params, caches, tokens, pos)
-  cache_shapes(batch, seq_len)
-  zero_caches(batch, seq_len, device)
+  cache_shapes(batch, seq_len, src_len=4096)
+  zero_caches(batch, seq_len, device, src_len=4096)
 
 A model is built on the meta device (no storage) until `init` or
-`load_params` gives it tensors.  Configs with MoE, mamba, encoder–decoder
-or a frontend raise `NotImplementedError` (ROADMAP item 16).
+`load_params` gives it tensors.  The registered parameters take no
+gradient: serving runs under `inference_mode`, and training
+(`training.trainer`) takes the gradient of `loss` with respect to leaves
+of its own.
 """
 from __future__ import annotations
 
@@ -24,14 +28,22 @@ from typing import Dict, Mapping
 import torch
 from torch import nn
 
-from . import layers, transformer
+from . import encdec, layers, transformer
 from .config import ModelConfig
 
 
+def param_defs(cfg: ModelConfig) -> layers.ParamDefs:
+    """Every param's path, shape, dtype and init scale, for any family."""
+    if cfg.is_encdec:
+        return encdec.encdec_param_defs(cfg)
+    return transformer.lm_param_defs(cfg)
+
+
 class Model(nn.Module):
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, moe_impl: str = "einsum"):
         super().__init__()
         self.cfg = cfg
+        self.moe_impl = moe_impl
         for path, d in self.param_defs().items():
             self.register_parameter(path, nn.Parameter(
                 torch.empty(d.shape, dtype=d.dtype, device="meta"),
@@ -39,7 +51,7 @@ class Model(nn.Module):
 
     # -- params ------------------------------------------------------------
     def param_defs(self) -> layers.ParamDefs:
-        return transformer.lm_param_defs(self.cfg)
+        return param_defs(self.cfg)
 
     def params(self) -> Dict[str, torch.Tensor]:
         """The registered params by path."""
@@ -68,23 +80,56 @@ class Model(nn.Module):
         return self.load_params(layers.init_params(self.param_defs(),
                                                    generator))
 
+    @property
+    def use_rope(self) -> bool:
+        # jamba-style hybrids rely on mamba for position; no rope there
+        return self.cfg.family != "hybrid"
+
+    # -- training ----------------------------------------------------------
+    def loss(self, params, batch) -> torch.Tensor:
+        if self.cfg.is_encdec:
+            return encdec.encdec_loss(self.cfg, params, batch)
+        return transformer.lm_loss(self.cfg, params, batch,
+                                   moe_impl=self.moe_impl,
+                                   use_rope=self.use_rope)
+
     # -- serving -----------------------------------------------------------
     def prefill(self, params, batch) -> torch.Tensor:
-        return transformer.lm_prefill(self.cfg, params, batch["tokens"])
+        cfg = self.cfg
+        if cfg.is_encdec:
+            memory = encdec.encode(cfg, params, batch["frames"])
+            h = encdec.decode_train(cfg, params, batch["tokens"], memory)
+            h = layers.rms_norm(h[:, -1, :], params["final_norm"],
+                                cfg.norm_eps)
+            return layers.logits_last(cfg, params, h)
+        patches = (batch.get("patches") if cfg.frontend == "patches"
+                   else None)
+        return transformer.lm_prefill(cfg, params, batch["tokens"],
+                                      moe_impl=self.moe_impl,
+                                      use_rope=self.use_rope,
+                                      patches=patches)
 
     def decode_step(self, params, caches, tokens, pos):
+        if self.cfg.is_encdec:
+            return encdec.encdec_decode_step(self.cfg, params, caches,
+                                             tokens, pos)
         return transformer.lm_decode_step(self.cfg, params, caches, tokens,
-                                          pos)
+                                          pos, moe_impl=self.moe_impl,
+                                          use_rope=self.use_rope)
 
-    def cache_shapes(self, batch: int, seq_len: int):
+    def cache_shapes(self, batch: int, seq_len: int, src_len: int = 4096):
+        if self.cfg.is_encdec:
+            return encdec.encdec_cache_shapes(self.cfg, batch, seq_len,
+                                              src_len)
         return transformer.lm_cache_shapes(self.cfg, batch, seq_len)
 
-    def zero_caches(self, batch: int, seq_len: int, device):
-        """Caches of `cache_shapes(batch, seq_len)` on `device`, zeroed."""
-        return tuple({k: torch.zeros(s.shape, dtype=s.dtype, device=device)
-                      for k, s in layer.items()}
-                     for layer in self.cache_shapes(batch, seq_len))
+    def zero_caches(self, batch: int, seq_len: int, device,
+                    src_len: int = 4096):
+        """Caches of `cache_shapes(batch, seq_len, src_len)` on `device`,
+        zeroed (mamba's `ssm` state in float32)."""
+        return layers.zeros_like_shapes(
+            self.cache_shapes(batch, seq_len, src_len), device)
 
 
-def build_model(cfg: ModelConfig) -> Model:
-    return Model(cfg)
+def build_model(cfg: ModelConfig, moe_impl: str = "einsum") -> Model:
+    return Model(cfg, moe_impl)

@@ -1,14 +1,14 @@
-"""Decoder-only LM assembly for dense attention models: pre-norm blocks run
-as a loop over layers; port of `repro.models.transformer` for
-(attn, dense) layers.
+"""Decoder-only LM assembly: pre-norm blocks of every (mixer, mlp) kind,
+run as a loop over periods; port of `repro.models.transformer`.
 
 The parameters keep the reference's stacked layout: `blk{pos}/...` paths
 with a leading axis over the periods of `ModelConfig.layer_groups()` (a
-dense model has period 1, so the axis runs over the layers).  The
-reference's scan over periods, its remat and its sharding constraints have
-no counterpart here: on one device a serving forward has neither a mesh
-nor a backward.  MoE, mamba and encoder–decoder blocks are still to port
-(ROADMAP item 16b).
+uniform model has period 1, so the axis runs over the layers; jamba's
+attn:mamba 1:7 interleave with MoE every other layer has period 8).  A
+block's mixer is attention or mamba, its MLP dense, MoE or none.  With
+`cfg.remat == "full"` each period is recomputed in the backward, as the
+reference's `jax.checkpoint` of its period body; the reference's sharding
+constraints have no counterpart on one device.
 """
 from __future__ import annotations
 
@@ -16,50 +16,52 @@ from typing import Dict, Mapping, Tuple
 
 import torch
 
+from . import moe as moe_mod
 from .attention import (attention, attn_defs, decode_attention,
                         init_cache_shapes, self_tables)
 from .config import ModelConfig
-from .layers import (ParamDef, ParamDefs, embed_defs, embed_tokens,
-                     logits_last, mlp_apply, mlp_defs, rms_norm)
-
-DENSE = ("attn", "dense")
-
-
-def check_dense(cfg: ModelConfig) -> None:
-    """Raise for a config whose blocks this port cannot run yet."""
-    kinds = {cfg.layer_kind(i) for i in range(cfg.n_layers)}
-    if cfg.is_encdec or cfg.frontend or kinds != {DENSE}:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} (layer kinds "
-            f"{sorted(kinds)}, encoder layers {cfg.n_enc_layers}, frontend "
-            f"{cfg.frontend!r}) needs MoE, mamba, encoder-decoder or "
-            f"frontend blocks, which the port does not have yet (ROADMAP "
-            f"item 16)")
+from .layers import (ParamDef, ParamDefs, chunked_xent, embed_defs,
+                     embed_tokens, logits_last, mlp_apply, mlp_defs, remat,
+                     rms_norm)
+from .mamba import (init_mamba_cache_shapes, mamba_apply, mamba_decode_step,
+                    mamba_defs)
 
 
-def _block_defs(cfg: ModelConfig, pos: int, n_periods: int) -> ParamDefs:
+def _block_defs(cfg: ModelConfig, pos: int, kind: Tuple[str, str],
+                n_periods: int) -> ParamDefs:
+    mixer, mlp = kind
     stack = (n_periods,)
     pre = f"blk{pos}"
     defs: ParamDefs = {
         f"{pre}/norm1": ParamDef(stack + (cfg.d_model,), cfg.pdtype,
                                  ("layers", None), scale=-1.0),
-        f"{pre}/norm2": ParamDef(stack + (cfg.d_model,), cfg.pdtype,
-                                 ("layers", None), scale=-1.0),
     }
-    defs.update(attn_defs(cfg, prefix=f"{pre}/attn", stack=stack))
-    defs.update(mlp_defs(cfg, prefix=f"{pre}/mlp", stack=stack))
+    if mlp != "none":
+        defs[f"{pre}/norm2"] = ParamDef(stack + (cfg.d_model,), cfg.pdtype,
+                                        ("layers", None), scale=-1.0)
+    if mixer == "attn":
+        defs.update(attn_defs(cfg, prefix=f"{pre}/attn", stack=stack))
+    else:
+        defs.update(mamba_defs(cfg, prefix=f"{pre}/mamba", stack=stack))
+    if mlp == "moe":
+        defs.update(moe_mod.moe_defs(cfg, prefix=f"{pre}/moe", stack=stack))
+    elif mlp == "dense":
+        defs.update(mlp_defs(cfg, prefix=f"{pre}/mlp", stack=stack))
     return defs
 
 
 def lm_param_defs(cfg: ModelConfig) -> ParamDefs:
-    check_dense(cfg)
-    period, _ = cfg.layer_groups()
+    period, kinds = cfg.layer_groups()
     n_periods = cfg.n_layers // period
     defs = dict(embed_defs(cfg))
     defs["final_norm"] = ParamDef((cfg.d_model,), cfg.pdtype, (None,),
                                   scale=-1.0)
-    for pos in range(period):
-        defs.update(_block_defs(cfg, pos, n_periods))
+    if cfg.frontend:
+        # modality stub: projection from precomputed frontend embeddings
+        defs["frontend/proj"] = ParamDef((cfg.d_model, cfg.d_model),
+                                         cfg.pdtype, ("fsdp", "embed"))
+    for pos, kind in enumerate(kinds):
+        defs.update(_block_defs(cfg, pos, kind, n_periods))
     return defs
 
 
@@ -74,62 +76,134 @@ def _layer_params(params: Mapping[str, torch.Tensor], period: int,
             if k.startswith(pre)}
 
 
-def _block_apply(cfg: ModelConfig, p_blk, x, use_rope: bool, tables=None):
-    """One pre-norm (attn, dense) block over the whole sequence."""
+def _block_apply(cfg: ModelConfig, kind: Tuple[str, str], p_blk, x,
+                 moe_impl: str, use_rope: bool, tables=None):
+    """One pre-norm block over the whole sequence -> (x, its MoE aux)."""
+    mixer, mlp = kind
     h = rms_norm(x, p_blk["norm1"], cfg.norm_eps)
-    x = x + attention(cfg, p_blk, h, prefix="attn", causal=True,
+    if mixer == "attn":
+        h = attention(cfg, p_blk, h, prefix="attn", causal=True,
                       rope=use_rope, tables=tables)
+    else:
+        h = mamba_apply(cfg, p_blk, h, prefix="mamba")
+    x = x + h
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if mlp == "none":
+        return x, aux
     h = rms_norm(x, p_blk["norm2"], cfg.norm_eps)
-    return x + mlp_apply(cfg, p_blk, h, prefix="mlp")
+    if mlp == "moe":
+        h, aux = moe_mod.moe_apply(cfg, p_blk, h, prefix="moe", impl=moe_impl)
+    else:
+        h = mlp_apply(cfg, p_blk, h, prefix="mlp")
+    return x + h, aux
 
 
 def lm_backbone(cfg: ModelConfig, params: Mapping[str, torch.Tensor],
-                x: torch.Tensor, use_rope: bool = True) -> torch.Tensor:
-    """Run all blocks in order. x: (B, S, D) -> h (B, S, D)."""
+                x: torch.Tensor, moe_impl: str = "einsum",
+                use_rope: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Run all blocks, period by period. x: (B,S,D) -> (h, moe_aux)."""
+    period, kinds = cfg.layer_groups()
     tables = (self_tables(cfg, torch.arange(x.shape[1], device=x.device)
                           [None, :]) if use_rope else None)
-    period, _ = cfg.layer_groups()
-    for i in range(cfg.n_layers):
-        x = _block_apply(cfg, _layer_params(params, period, i), x, use_rope,
-                         tables)
-    return x
+
+    def period_body(x, r):
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for pos, kind in enumerate(kinds):
+            x, a = _block_apply(cfg, kind,
+                                _layer_params(params, period,
+                                              r * period + pos),
+                                x, moe_impl, use_rope, tables)
+            aux = aux + a
+        return x, aux
+
+    auxs = []
+    for r in range(cfg.n_layers // period):
+        x, a = (remat(period_body, x, r) if cfg.remat == "full"
+                else period_body(x, r))
+        auxs.append(a)
+    return x, torch.stack(auxs).sum()
 
 
+def _merge_frontend(cfg: ModelConfig, params, x_tok, frontend_embeds):
+    """VLM stub: project precomputed patch embeddings and prepend them."""
+    cd = cfg.cdtype
+    fe = frontend_embeds.to(cd) @ params["frontend/proj"].to(cd)
+    return torch.cat([fe, x_tok], dim=1)
+
+
+def lm_loss(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
+            moe_impl: str = "einsum", use_rope: bool = True) -> torch.Tensor:
+    """Next-token loss.  batch: tokens (B,S) integer, labels (B,S) integer
+    (-1 = pad); optional patches (B,P,D) for VLM stubs, whose positions
+    carry label -1.  Includes 0.01 × the blocks' MoE aux loss."""
+    x = embed_tokens(cfg, params, batch["tokens"])
+    labels = batch["labels"]
+    if cfg.frontend == "patches" and "patches" in batch:
+        x = _merge_frontend(cfg, params, x, batch["patches"])
+        pad_lab = torch.full(batch["patches"].shape[:2], -1,
+                             dtype=labels.dtype, device=labels.device)
+        labels = torch.cat([pad_lab, labels], dim=1)
+    h, moe_aux = lm_backbone(cfg, params, x, moe_impl, use_rope)
+    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    return chunked_xent(cfg, params, h, labels) + 0.01 * moe_aux
+
+
+# ---------------------------------------------------------------------------
+# serving: prefill + decode with per-layer caches
+# ---------------------------------------------------------------------------
 def lm_prefill(cfg: ModelConfig, params, tokens: torch.Tensor,
-               use_rope: bool = True) -> torch.Tensor:
-    """One forward over the whole prompt: the last position's logits
-    (B, padded_vocab).  Fills no cache; decode writes its own."""
+               moe_impl: str = "einsum", use_rope: bool = True,
+               patches=None) -> torch.Tensor:
+    """One forward over the whole prompt (patch stand-ins first, when
+    given): the last position's logits (B, padded_vocab).  Fills no cache;
+    decode writes its own."""
     x = embed_tokens(cfg, params, tokens)
-    h = lm_backbone(cfg, params, x, use_rope)
+    if patches is not None:
+        x = _merge_frontend(cfg, params, x, patches)
+    h, _ = lm_backbone(cfg, params, x, moe_impl, use_rope)
     h = rms_norm(h[:, -1, :], params["final_norm"], cfg.norm_eps)
     return logits_last(cfg, params, h)
 
 
 def lm_cache_shapes(cfg: ModelConfig, batch: int, seq_len: int):
-    """One {k, v} entry per layer, unstacked, as the reference's."""
-    check_dense(cfg)
+    """One entry per layer, unstacked, as the reference's: {k, v} for an
+    attention layer, {conv_x, conv_B, conv_C, ssm} for a mamba layer."""
     return tuple(init_cache_shapes(cfg, batch, seq_len)
-                 for _ in range(cfg.n_layers))
+                 if cfg.layer_kind(i)[0] == "attn"
+                 else init_mamba_cache_shapes(cfg, batch)
+                 for i in range(cfg.n_layers))
 
 
 def lm_decode_step(cfg: ModelConfig, params, caches, tokens: torch.Tensor,
-                   pos: int, use_rope: bool = True
+                   pos: int, moe_impl: str = "einsum", use_rope: bool = True
                    ) -> Tuple[torch.Tensor, Tuple]:
     """One decode step.  tokens: (B, 1) integer; caches as
-    `lm_cache_shapes`, each layer's written at `pos` in place.  Returns
-    (logits (B, padded_vocab), caches)."""
+    `lm_cache_shapes`, each layer's written in place (attention at `pos`).
+    Returns (logits (B, padded_vocab), caches)."""
     x = embed_tokens(cfg, params, tokens)
     tables = (self_tables(cfg, torch.full((x.shape[0], 1), int(pos),
                                           dtype=torch.int32, device=x.device))
               if use_rope else None)
-    period, _ = cfg.layer_groups()
+    period, kinds = cfg.layer_groups()
     for i in range(cfg.n_layers):
+        mixer, mlp = kinds[i % period]
         p_blk = _layer_params(params, period, i)
         h = rms_norm(x, p_blk["norm1"], cfg.norm_eps)
-        h, _ = decode_attention(cfg, p_blk, h, caches[i], pos, prefix="attn",
-                                rope=use_rope, tables=tables)
+        if mixer == "attn":
+            h, _ = decode_attention(cfg, p_blk, h, caches[i], pos,
+                                    prefix="attn", rope=use_rope,
+                                    tables=tables)
+        else:
+            h, _ = mamba_decode_step(cfg, p_blk, h, caches[i],
+                                     prefix="mamba")
         x = x + h
-        h = rms_norm(x, p_blk["norm2"], cfg.norm_eps)
-        x = x + mlp_apply(cfg, p_blk, h, prefix="mlp")
+        if mlp != "none":
+            h = rms_norm(x, p_blk["norm2"], cfg.norm_eps)
+            if mlp == "moe":
+                h, _ = moe_mod.moe_apply(cfg, p_blk, h, prefix="moe",
+                                         impl=moe_impl)
+            else:
+                h = mlp_apply(cfg, p_blk, h, prefix="mlp")
+            x = x + h
     h = rms_norm(x[:, 0, :], params["final_norm"], cfg.norm_eps)
     return logits_last(cfg, params, h), tuple(caches)

@@ -4,7 +4,8 @@ fixed-capacity KV cache; port of `repro.serving.engine`.
 Request queue -> batch assembly (padded to the engine's batch), greedy or
 temperature sampling, per-sequence stop handling.  Every step is one
 `decode_step` for the whole batch and one host read of its sampled tokens.
-The caches are allocated once and zeroed in place for every batch.
+The caches (any family's tree) are allocated once and zeroed in place for
+every batch.
 """
 from __future__ import annotations
 
@@ -14,6 +15,8 @@ from typing import List, Optional
 
 import numpy as np
 import torch
+
+from ..models.layers import tree_tensors
 
 
 @dataclasses.dataclass
@@ -60,9 +63,8 @@ class Engine:
         B = self.batch
         reqs = list(requests) + [Request(prompt=[0], max_new=0)
                                  for _ in range(B - len(requests))]
-        for layer in self.caches:
-            for t in layer.values():
-                t.zero_()
+        for t in tree_tensors(self.caches):
+            t.zero_()
         lens = [len(r.prompt) for r in reqs]
         total = max(l + r.max_new for l, r in zip(lens, reqs))
         outs = [[] for _ in range(B)]

@@ -60,6 +60,19 @@ def test_example_and_lm_modules_scanned(rel):
     assert ROOT / "src" / "repro_torch" / rel in FILES
 
 
+# every LM family and training, each of which the scan must cover
+FAMILY_AND_TRAINING_MODULES = (
+    "models/moe.py", "models/mamba.py", "models/encdec.py",
+    "optim/__init__.py", "optim/optimizers.py", "training/__init__.py",
+    "training/trainer.py", "data/__init__.py", "data/pipeline.py",
+    "launch/train.py", "examples/train_lm.py")
+
+
+@pytest.mark.parametrize("rel", FAMILY_AND_TRAINING_MODULES)
+def test_family_and_training_modules_scanned(rel):
+    assert ROOT / "src" / "repro_torch" / rel in FILES
+
+
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_imports(path):
     bad = [name for name in _imports(path)

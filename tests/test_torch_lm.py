@@ -4,8 +4,10 @@ the JAX package's.
 Shapes: for the four dense configs at full width the port's `param_defs()`
 paths, shapes and dtypes equal the reference's (no tensor is allocated);
 qwen3-1.7b has 13 paths and 1,720,837,120 parameters.  Every non-dense
-config raises NotImplementedError; every `reduced()` config equals the
-reference's field for field.
+config (MoE, mamba2, the hybrid, encoder-decoder, VLM), which raised
+NotImplementedError before its families were ported, now builds at full
+width and reduced with the reference's paths, shapes and dtypes; every
+`reduced()` config equals the reference's field for field.
 
 Numbers: on `reduced()` qwen3, gemma and chatglm3 in float32 the
 reference's `model.init(PRNGKey(0))` is carried across by path
@@ -98,9 +100,24 @@ def test_full_width_param_defs_equal_reference(arch):
 
 @pytest.mark.parametrize("arch", NON_DENSE)
 def test_non_dense_configs_raise(arch):
-    for cfg in (get_config(arch), get_config(arch).reduced()):
-        with pytest.raises(NotImplementedError, match="item 16"):
-            build_model(cfg)
+    """Once NotImplementedError (ROADMAP item 16); now every non-dense
+    config builds, full and reduced, on the meta device, with the
+    reference's param paths, shapes and dtypes, under both MoE impls."""
+    for full in (True, False):
+        r_cfg, cfg = r_get_config(arch), get_config(arch)
+        if not full:
+            r_cfg, cfg = r_cfg.reduced(), cfg.reduced()
+        want = r_build_model(r_cfg).param_defs()
+        for impl in ("einsum", "gather"):
+            model = build_model(cfg, moe_impl=impl)
+            got = model.param_defs()
+            assert sorted(got) == sorted(want), arch
+            for path, d in want.items():
+                assert got[path].shape == d.shape, path
+                assert (_np_dtype_name(got[path].dtype)
+                        == str(np.dtype(d.dtype))), path
+                assert got[path].scale == d.scale, path
+            assert all(p.device.type == "meta" for p in model.parameters())
 
 
 # ---------------------------------------------------------------------------

@@ -230,6 +230,17 @@ nothing of JAX or of the JAX package.  Phases, each failing loudly:
               printed); (e) `python -m repro_torch.examples.train_lm
               --json` as a process at its default (reduced, 300 steps):
               the loss falling, no skip
+ 17. tools    (a) the op walker (launch/op_cost.py) over qwen3-1.7b's
+              decode step at batch 4 with its params placed as DTensors
+              by `param_pspecs` on a 1 x 1 NCCL mesh: dot FLOPs, bytes,
+              the H100 roofline bound (launch/analysis.py), held at most
+              the step's measured median (CUDA events), the bytes at
+              least the weights'; (b) the same over qwen3's AdamW train
+              step at batch 8 x 128, its dot FLOPs beside 8·N·D; (c)
+              that sharded decode step's logits bit for bit the plain
+              step's; (d) the dry run (launch/dryrun.py) of lp-matching
+              on both production meshes and of qwen3-1.7b decode_32k on
+              (16, 16): HBM, the three roofline terms, the dominant one
 
 The last three lines of standard output are the card's name and power
 limit, the kernels' JSON record, and {"ok": true, "device": {...}}.  Exits
@@ -258,9 +269,26 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 DEVICE = "cuda"
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
+
+
+def _load_analysis():
+    """This checkout's `repro_torch/launch/analysis.py` (numpy only), read
+    from its file so that `--kernel-times` can import another checkout's
+    package."""
+    import importlib.util
+    path = os.path.join(ROOT, "src", "repro_torch", "launch", "analysis.py")
+    spec = importlib.util.spec_from_file_location("_h100_analysis", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# the port's H100 SXM roofline figures (launch/analysis.py): HBM3 device
+# memory and dense bfloat16 tensor cores
+_ANALYSIS = _load_analysis()
+HBM_BYTES_PER_S = _ANALYSIS.HBM_BW
+BF16_OPS_PER_S = _ANALYSIS.PEAK_FLOPS
 F32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
-BF16_OPS_PER_S = 989e12       # H100 SXM bfloat16 tensor cores, dense
 MAIN_ARGS = ["--sources", "2000000", "--destinations", "10000",
              "--nnz-per-row", "25", "--seed", "42",
              "--adaptive-continuation", "--tol-rel-dual", "1e-6",
@@ -4162,6 +4190,223 @@ def drive(args, inst, expect, what):
     return out, launches, per_eval
 
 
+# phase 17: the compile-side tools (launch/op_cost.py, analysis.py,
+# dryrun.py, sharding.py) on the card's own steps
+TOOLS_DECODE_BATCH = 4
+TOOLS_DECODE_POS = 3
+TOOLS_TIMED = 10          # decode steps timed, the median held
+TOOLS_TRAIN_TIMED = 5     # train steps timed, the median held
+TOOLS_TRAIN_SHAPE = (8, 128)
+
+
+def _median_ms(fn, reps, device):
+    """Median ms of fn() over `reps` runs after one warm-up: CUDA events
+    on the card, the host clock on the CPU."""
+    import torch
+    fn()
+    times = []
+    for _ in range(reps):
+        if device == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        else:
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def walk_line(what, walk, measured_ms):
+    """Log one walk beside its H100 roofline bound and the measured
+    median; hold bound <= measured.  Returns the roofline."""
+    cost = {"flops_per_device": walk["flops_per_device"],
+            "bytes_per_device": walk["bytes_per_device"]}
+    roof = _ANALYSIS.roofline(cost, walk["collectives"], 1)
+    bound_ms = roof["bound_step_time_s"] * 1e3
+    log(f"tools {what}: walker {walk['flops_per_device']:.6e} dot FLOPs, "
+        f"{walk['bytes_per_device']:.6e} bytes (eager, unfused), "
+        f"{walk['collective_bytes_per_device']:.0f} collective bytes; H100 "
+        f"roofline t_compute {roof['t_compute_s'] * 1e3:.4f} ms, t_memory "
+        f"{roof['t_memory_s'] * 1e3:.4f} ms, bound {bound_ms:.4f} ms "
+        f"({roof['dominant']}); measured median {measured_ms:.4f} ms; "
+        f"fallbacks {walk['fallbacks']}")
+    require(bound_ms <= measured_ms,
+            f"tools {what}: the roofline bound {bound_ms} ms exceeds the "
+            f"measured {measured_ms} ms")
+    return roof
+
+
+def tools_decode(arch=LM_ARCH, device=DEVICE, backend="nccl", reduced=False):
+    """Phase 17 (a) and (c): a one-rank process group (`backend`) and a
+    1 x 1 DeviceMesh; the arch's params drawn on `device` and placed on it
+    as DTensors by `param_pspecs` under the serving rules.  (c) one
+    decode step at batch `TOOLS_DECODE_BATCH` equals the plain step's bit
+    for bit; (a) the walker over that step, its H100 bound held at most
+    the step's measured median, its bytes at least the weights' bytes."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch import sharding
+    from repro_torch.configs import get_config
+    from repro_torch.launch import op_cost
+    from repro_torch.launch.mesh import MeshSpec, device_mesh
+    from repro_torch.models import build_model
+    cfg = get_config(arch)
+    cfg = cfg.reduced() if reduced else cfg
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device).manual_seed(0))
+    nbytes = sum(p.numel() * p.element_size() for p in params.values())
+    gen = torch.Generator().manual_seed(17)
+    B = TOOLS_DECODE_BATCH
+    toks = torch.randint(0, cfg.vocab, (B, 1), generator=gen).to(device)
+    rules = sharding.SERVING_RULES
+    dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = device_mesh(MeshSpec((1, 1), ("data", "model")), device)
+        with sharding.use_mesh_rules(mesh, rules):
+            specs = model.param_pspecs()
+        placed = {k: distribute_tensor(
+            v, mesh, sharding.placements_for(specs[k], mesh))
+            for k, v in params.items()}
+
+        def plain():
+            caches = model.zero_caches(B, LM_MAX_SEQ, device)
+            with torch.no_grad():
+                return model.decode_step(params, caches, toks,
+                                         TOOLS_DECODE_POS)[0]
+
+        def sharded(p=placed):
+            caches = model.zero_caches(B, LM_MAX_SEQ, device)
+            with torch.no_grad(), sharding.use_mesh_rules(mesh, rules), \
+                    implicit_replication():
+                return model.decode_step(p, caches, toks,
+                                         TOOLS_DECODE_POS)[0]
+        want = plain()
+        got = sharded()
+        got = got.full_tensor() if isinstance(got, DTensor) else got
+        same = torch.equal(got, want)
+        log(f"tools (c) {cfg.name} decode step at batch {B}, params placed "
+            f"as DTensors by param_pspecs (serving rules) on a 1 x 1 "
+            f"{backend} mesh: logits bit for bit the plain step's: {same} "
+            f"(max |diff| {float((got.float() - want.float()).abs().max())})")
+        require(same, "tools (c): the sharded decode step differs from the "
+                "plain one")
+        walk = op_cost.analyze(sharded, placed)
+        measured = _median_ms(sharded, TOOLS_TIMED, device)
+        walk_line(f"(a) {cfg.name} decode step at batch {B} on the 1 x 1 "
+                  f"mesh", walk, measured)
+        log(f"tools (a) walker bytes {walk['bytes_per_device']:.6e} against "
+            f"the weights' {nbytes} (phase 14's bound "
+            f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms x {HBM_BYTES_PER_S:.3e} "
+            f"B/s)")
+        require(walk["bytes_per_device"] >= nbytes,
+                "tools (a): the walker's bytes are under the weights' bytes")
+        del placed, walk
+    finally:
+        dist.destroy_process_group()
+    del model, params
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+
+def tools_train(arch=LM_ARCH, device=DEVICE, reduced=False,
+                shape=TOOLS_TRAIN_SHAPE):
+    """Phase 17 (b): the walker over one AdamW train step of phase 16's
+    config at batch x seq `shape`, its H100 bound held at most the
+    measured median step; its dot FLOPs beside `train_bound_ms`'s 8·N·D,
+    and the two terms that part them: attention's S² products and the
+    embedding."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import op_cost
+    from repro_torch.launch.train import stream_for
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamW, cosine_schedule
+    from repro_torch.training.trainer import TrainState, make_train_step
+    cfg = get_config(arch)
+    cfg = cfg.reduced() if reduced else cfg
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device).manual_seed(0))
+    opt = AdamW(state_dtype=cfg.optstate_dtype)
+    step = make_train_step(model.loss, opt, cosine_schedule(1e-3, 5, 100))
+    state = TrainState(step=torch.zeros((), dtype=torch.int32, device=device),
+                       params=params, opt_state=opt.init(params))
+    B, S = shape
+    batch = {k: torch.from_numpy(v).to(device)
+             for k, v in stream_for(cfg, B, S).next().items()}
+    walk = op_cost.analyze(step, state, batch)
+    holder = [walk["out"][0]]
+    del walk["out"]
+
+    def one():
+        holder[0] = step(holder[0], batch)[0]
+    measured = _median_ms(one, TOOLS_TRAIN_TIMED, device)
+    walk_line(f"(b) {cfg.name} train step at batch {B} x seq {S}", walk,
+              measured)
+    n = sum(p.numel() for p in params.values())
+    eight = 8.0 * n * B * S
+    # the walk's products by kind: a dense model's weights multiply as mm
+    # (3-D activations fold), attention's scores and probs x V as bmm
+    bmm = sum(r.flops for r in walk["records"] if r.op in ("bmm", "baddbmm"))
+    mm = walk["flops_per_device"] - bmm
+    norms = sum(p.numel() for k, p in params.items() if "norm" in k)
+    table = 0 if cfg.tie_embeddings else cfg.padded_vocab * cfg.d_model
+    short = 8.0 * (n - norms - table) * B * S - mm
+    log(f"tools (b) walker dot FLOPs {walk['flops_per_device']:.6e} against "
+        f"train_bound_ms's 8·N·D {eight:.6e} (N {n}, D {B * S}); where they "
+        f"differ: attention's S² products (bmm), which 8·N·D leaves out, "
+        f"{bmm:.6e}; the weights' products (mm) {mm:.6e}, "
+        f"{short:.6e} under 8·(N - {norms} norm weights, elementwise - "
+        f"{table} params of an untied input table, a gather"
+        f"{'; the tied table is the logits weight, 8 a token' if cfg.tie_embeddings else ''}"
+        f")·D where remat is on: torch's non-reentrant checkpoint stops "
+        f"recomputing a period once the tensors its backward needs are "
+        f"back, so the products after them are not run again")
+    del state, holder, params, model, opt
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+
+def tools_dryrun():
+    """Phase 17 (d): the port's dry run, rank 0 of a fake process group:
+    lp-matching on both production meshes and qwen3-1.7b decode_32k on
+    (16, 16); per-device HBM, the three roofline terms, the dominant one.
+    No FAIL."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+    cells = [("lp-matching", "single",
+              lambda m: dryrun.lower_lp(m)),
+             ("lp-matching", "multipod",
+              lambda m: dryrun.lower_lp(m)),
+             (LM_ARCH + " decode_32k", "single",
+              lambda m: dryrun.lower_cell(LM_ARCH, "decode_32k", m))]
+    for what, mesh_name, run in cells:
+        t0 = time.perf_counter()
+        rec = run(make_production_mesh(multi_pod=mesh_name == "multipod"))
+        r = rec["roofline"]
+        log(f"tools (d) dry run {what} on {mesh_name} {rec['mesh']}: "
+            f"{rec['status']}, HBM {rec['hbm_per_device_gb']:.4f} GB a "
+            f"device, t_compute {r['t_compute_s']:.6e} s, t_memory "
+            f"{r['t_memory_s']:.6e} s, t_collective {r['t_collective_s']:.6e}"
+            f" s, dominant {r['dominant']}; collectives "
+            f"{rec['collectives']}; {time.perf_counter() - t0:.1f} s")
+        require(rec["status"] == "OK", f"tools (d): {what} did not pass")
+
+
+def tools_phase():
+    """Phase 17 (see the module docstring)."""
+    tools_decode()
+    tools_train()
+    tools_dryrun()
+
+
 def main() -> int:
     import argparse
     import torch
@@ -4362,6 +4607,11 @@ def main() -> int:
     t_train = time.perf_counter()
     train_phase()
     log(f"phase 16 (train): {time.perf_counter() - t_train:.1f} s")
+
+    # 17. the compile-side tools: the op walker, a sharded step, dry run
+    t_tools = time.perf_counter()
+    tools_phase()
+    log(f"phase 17 (tools): {time.perf_counter() - t_tools:.1f} s")
 
     kernels = []
     for name, rec in records.items():

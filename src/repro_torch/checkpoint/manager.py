@@ -201,11 +201,20 @@ class CheckpointManager:
         data, meta = self._load_step(step)
         return data, meta["extra"]
 
-    def restore(self, step: int, like: Any,
-                device=None) -> Tuple[Any, Dict]:
+    def restore(self, step: int, like: Any, device=None, mesh=None,
+                placements: Any = None) -> Tuple[Any, Dict]:
         """Restore into the structure of `like`: each tensor leaf comes
         back as a tensor of its dtype on `device` (default: the leaf's
-        own), each other leaf as a numpy array of its dtype."""
+        own), each other leaf as a numpy array of its dtype.
+
+        The elastic-reshard hook: with a DeviceMesh `mesh` and
+        `placements` (a tree of `like`'s structure, each leaf a tuple of
+        DTensor placements, one per mesh dim), each tensor leaf comes back
+        as a DTensor laid out so, whatever layout it was saved from (a
+        checkpoint holds whole arrays)."""
+        if placements is not None:
+            tree, extra = self.restore(step, like, device)
+            return _distribute(tree, mesh, placements), extra
         data, meta = self._load_step(step)
         leaves = []
         for key, leaf in _walk(like):
@@ -223,9 +232,31 @@ class CheckpointManager:
                 leaves.append(np.asarray(arr, np.asarray(leaf).dtype))
         return _rebuild(like, iter(leaves)), meta["extra"]
 
-    def restore_latest(self, like: Any, device=None):
+    def restore_latest(self, like: Any, device=None, mesh=None,
+                       placements: Any = None):
         step = self.latest_step()
         if step is None:
             return None
-        tree, extra = self.restore(step, like, device)
+        tree, extra = self.restore(step, like, device, mesh, placements)
         return step, tree, extra
+
+
+def _distribute(tree, mesh, placements):
+    """`tree` with each tensor leaf laid out on `mesh` by the matching
+    leaf of `placements` (a tree of the same structure; None keeps the
+    leaf as it is)."""
+    if isinstance(tree, torch.Tensor):
+        if placements is None:
+            return tree
+        from torch.distributed.tensor import distribute_tensor
+        return distribute_tensor(tree, mesh, list(placements))
+    if _is_namedtuple(tree):
+        return type(tree)(*(_distribute(c, mesh, p)
+                            for c, p in zip(tree, placements)))
+    if isinstance(tree, dict):
+        return {k: _distribute(v, mesh, placements[k])
+                for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_distribute(c, mesh, p)
+                          for c, p in zip(tree, placements))
+    return tree

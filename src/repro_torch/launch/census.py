@@ -53,7 +53,8 @@ from ..core.objectives import GlobalCountObjective
 from ..kernels.ops import KERNEL_KINDS
 
 __all__ = ["SlabCounts", "PlanCounts", "slab_counts", "plan_counts",
-           "sweep_bytes", "ax_bytes", "evaluation_census", "runner_memory"]
+           "sweep_bytes", "ax_bytes", "evaluation_census", "runner_memory",
+           "collective_kinds"]
 
 # float32 operations of K1's function: 4 a bisection step at a real entry,
 # 4 an entry outside the loop (f0 and max v), 7 a real edge (u, the clip,
@@ -217,23 +218,32 @@ def _local_census(obj) -> Dict[str, Dict[str, int]]:
     return out
 
 
-def _collective_bytes(obj, local) -> int:
+def collective_kinds(obj, local=None) -> Dict[str, int]:
     """The input bytes of the collectives one evaluation makes on this
-    rank (0 on one device with no process group)."""
+    rank, by kind ("all-reduce", "all-gather", "reduce-scatter"); all 0
+    on one device with no process group."""
+    if local is None:
+        obj, local = _objectives(obj)
     m, J = local.lp.m, local.lp.num_destinations
     extra = len(_shift_rows(local))
-    total = 0
+    out = {"all-reduce": 0, "all-gather": 0, "reduce-scatter": 0}
     if local.ax_reducer is not None:
-        total += (m * J + 2 + extra) * 4
+        out["all-reduce"] += (m * J + 2 + extra) * 4
     if obj is not local and getattr(obj, "_lam_group", None) is not None:
         L = obj._shards
         cols = J // L
-        total += m * cols * 4                 # λ's columns, gathered
-        total += L * (m * cols + 2) * 4       # the reduce-scatter's input
+        out["all-gather"] += m * cols * 4             # λ's columns
+        out["reduce-scatter"] += L * (m * cols + 2) * 4
         if obj._other_group is not None:
-            total += (m * cols + 2) * 4
-        total += 2 * 4                        # ⟨λ, grad⟩ and ‖(grad)₊‖²
-    return total
+            out["all-reduce"] += (m * cols + 2) * 4
+        out["all-reduce"] += 2 * 4        # ⟨λ, grad⟩ and ‖(grad)₊‖²
+    return out
+
+
+def _collective_bytes(obj, local) -> int:
+    """The input bytes of the collectives one evaluation makes on this
+    rank (0 on one device with no process group)."""
+    return sum(collective_kinds(obj, local).values())
 
 
 def _objectives(obj):

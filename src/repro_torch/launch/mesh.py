@@ -12,12 +12,22 @@ source axes, the λ axis, the source axes but the λ axis).
 
     python -m torch.distributed.run --standalone --nproc-per-node 2 \\
         -m repro_torch.launch.solve --device cpu ...
+
+For the model zoo's sharding (`repro_torch.sharding`) a mesh is named
+axes and their sizes: `MeshSpec` says so with no ranks behind it (the
+reference's `AbstractMesh`), `make_production_mesh` gives the two
+production shapes, and `device_mesh` lays a `MeshSpec` onto the current
+process group as a `DeviceMesh` for DTensor.  `fake_ranks` brings up a
+process group of any size in one process that communicates nothing, for
+the dry run (`launch.dryrun`).
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import itertools
 import os
-from typing import Dict, NamedTuple, Optional, Sequence, Tuple
+from typing import Dict, Iterator, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -157,3 +167,70 @@ def make_grid(shape: Sequence[int], axes: Sequence[str]) -> Grid:
 def source_axes(grid: Grid) -> Tuple[str, ...]:
     """LP source-partition axes of a grid: every axis except 'model'."""
     return tuple(a for a in grid.axes if a != "model")
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshSpec:
+    """Named mesh axes and their sizes, with no ranks behind them: the
+    counterpart of `jax.sharding.AbstractMesh`.  `shape` maps axis names
+    to sizes."""
+
+    dims: Tuple[int, ...]
+    axis_names: Tuple[str, ...]
+
+    def __post_init__(self):
+        if len(self.dims) != len(self.axis_names):
+            raise ValueError(f"mesh dims {self.dims} and axes "
+                             f"{self.axis_names} differ in length")
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.dims))
+
+    @property
+    def size(self) -> int:
+        return int(np.prod(self.dims, dtype=np.int64))
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> MeshSpec:
+    """The production meshes: (16, 16) ("data", "model"), 256 devices, or
+    (2, 16, 16) ("pod", "data", "model"), 512."""
+    if multi_pod:
+        return MeshSpec((2, 16, 16), ("pod", "data", "model"))
+    return MeshSpec((16, 16), ("data", "model"))
+
+
+def device_mesh(spec: MeshSpec, device_type: str = "cpu"):
+    """`spec` laid onto the default process group, whose size must be
+    `spec.size`, as a `DeviceMesh` with the same axis names (ranks
+    row-major, as `make_grid` lays them out)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    if not dist.is_initialized():
+        raise RuntimeError(f"a {spec.dims} mesh needs a process group of "
+                           f"{spec.size} ranks; none is up")
+    if dist.get_world_size() != spec.size:
+        raise ValueError(f"a {spec.dims} mesh needs {spec.size} ranks; "
+                         f"the process group has {dist.get_world_size()}")
+    return init_device_mesh(device_type, tuple(spec.dims),
+                            mesh_dim_names=tuple(spec.axis_names))
+
+
+@contextlib.contextmanager
+def fake_ranks(world: int, rank: int = 0) -> Iterator[None]:
+    """A default process group of `world` ranks in this one process, this
+    one rank `rank`, that communicates nothing (torch's "fake" backend):
+    every collective returns at once, its output left as it was.  Enough
+    to run DTensor's sharding on `meta` tensors.  The group is destroyed
+    on exit; no group may be up on entry."""
+    # registers the "fake" backend with torch.distributed
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("a default process group is already up")
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=world)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()

@@ -1,10 +1,15 @@
 """Attention: GQA/MQA with RoPE (+partial) and qk_norm, q-chunk-streamed
 self- and cross-attention for train/prefill, and one-token decode against a
-(B, S, kv, d) cache; port of `repro.models.attention` on one device.
+(B, S, kv, d) cache; port of `repro.models.attention`.
 
-With no mesh the reference takes its head-parallel branch
-(`heads_shardable` is True), so prefill repeats K/V to the full head count.
-Scores are accumulated and kept in float32, as the reference's
+Under a mesh context (`repro_torch.sharding.use_mesh_rules`) attention
+takes the reference's two branches: head parallelism when the heads divide
+the axes that "heads" maps to (`heads_shardable`), K/V repeated to the full
+head count; otherwise context parallelism, GQA scores and output over the
+key sequence with no repeat.  With no mesh `heads_shardable` is True, so
+prefill repeats K/V, as the reference does.  The `sharding.constrain`
+calls sit where the reference's do; with no mesh they return their
+argument.  Scores are accumulated and kept in float32, as the reference's
 `preferred_element_type` keeps them: the operands are cast to float32
 before the product (a bfloat16 product cast afterwards would round the
 scores to bfloat16 first).
@@ -15,6 +20,7 @@ from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 
+from .. import sharding
 from .config import ModelConfig
 from .layers import (ParamDef, ParamDefs, ShapeDtype, apply_rope,
                      host_scalar, remat, rms_norm, rope_tables)
@@ -47,13 +53,20 @@ def attn_defs(cfg: ModelConfig, prefix: str = "attn",
 def _heads(x, w):
     """x (B, S, D) by a (D, H, k) weight -> (B, S, H, k)."""
     D, H, k = w.shape
-    return (x @ w.reshape(D, H * k)).view(*x.shape[:-1], H, k)
+    y = x @ w.reshape(D, H * k)
+    if y.dim() == 3:     # sharded: the head split must not cut a shard
+        y = sharding.constrain(y, "batch", "seq", None)
+    return y.view(*x.shape[:-1], H, k)
 
 
 def _merge_heads(out, w):
     """out (B, S, H, k) by a (H, k, D) weight -> (B, S, D)."""
     H, k, D = w.shape
-    return out.reshape(*out.shape[:-2], H * k) @ w.reshape(H * k, D)
+    # one (rows, H·k) product, as matmul folds it: a DTensor's view may
+    # carry strides that keep matmul from folding (a batched product,
+    # rounded otherwise)
+    y = out.reshape(-1, H * k) @ w.reshape(H * k, D)
+    return y.view(*out.shape[:-2], D)
 
 
 def _project_qkv(cfg, p, x, kv_x, prefix, positions, kv_positions,
@@ -102,6 +115,23 @@ def _gqa_out(probs, v):
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, KV * G, -1)
 
 
+def heads_shardable(cfg: ModelConfig) -> bool:
+    """True iff n_heads divides evenly over the mesh axes assigned to
+    'heads' — decides head-TP vs context-parallel attention.  True with no
+    mesh context."""
+    mesh = sharding.current_mesh()
+    if mesh is None:
+        return True
+    part = sharding.spec_for(("heads",), mesh)[0]
+    if part is None:
+        return False
+    sizes = sharding.axis_sizes(mesh)
+    n = 1
+    for a in (part if isinstance(part, tuple) else (part,)):
+        n *= sizes[a]
+    return n > 1 and cfg.n_heads % n == 0
+
+
 def attention(cfg: ModelConfig, p: Mapping[str, torch.Tensor],
               x: torch.Tensor, prefix: str = "attn",
               kv_x: Optional[torch.Tensor] = None, causal: bool = True,
@@ -128,11 +158,25 @@ def attention(cfg: ModelConfig, p: Mapping[str, torch.Tensor],
                            rope=rope and not cross, tables=tables)
     scale = _scale(cfg)
     G = cfg.n_heads // cfg.n_kv
-    if G > 1:
-        k = torch.repeat_interleave(k, G, dim=2)
-        v = torch.repeat_interleave(v, G, dim=2)
-    kf = k.float().permute(0, 2, 3, 1)                      # (B, H, d, Sk)
-    vh = v.permute(0, 2, 1, 3)                              # (B, H, Sk, d)
+    head_tp = heads_shardable(cfg)
+    if head_tp:
+        # head tensor parallelism: K/V repeated to the full heads, so the
+        # products keep one head tiling
+        if G > 1:
+            k = torch.repeat_interleave(k, G, dim=2)
+            v = torch.repeat_interleave(v, G, dim=2)
+        q = sharding.constrain(q, "batch", None, "heads", None)
+        k = sharding.constrain(k, "batch", None, "heads", None)
+        v = sharding.constrain(v, "batch", None, "heads", None)
+        kf = k.float().permute(0, 2, 3, 1)                  # (B, H, d, Sk)
+        vh = v.permute(0, 2, 1, 3)                          # (B, H, Sk, d)
+    else:
+        # context parallelism: the heads do not divide the model axis
+        # (gemma's 8, deepseek's 56 on 16); the key sequence is sharded
+        # instead, and softmax and probs·V reduce over it
+        q = sharding.constrain(q, "batch", None, None, None)
+        k = sharding.constrain(k, "batch", "seq", "kv_heads", None)
+        v = sharding.constrain(v, "batch", "seq", "kv_heads", None)
     qc = min(cfg.attn_q_chunk, S)
     n = -(-S // qc)
     pad = n * qc - S
@@ -146,15 +190,29 @@ def attention(cfg: ModelConfig, p: Mapping[str, torch.Tensor],
 
     def chunk_out(qb, pb):
         scores = (qb.float().permute(0, 2, 1, 3) @ kf) * scale  # (B,H,qc,Sk)
+        scores = sharding.constrain(scores, "batch", "heads", None, None)
         if masked:
             mask = pb[:, None, :, None] >= kv_pos[None, None, None, :]
             scores = torch.where(mask, scores, NEG_INF)
         probs = torch.softmax(scores, dim=-1).to(cfg.cdtype)
         return (probs @ vh).permute(0, 2, 1, 3)
 
-    outs = [remat(chunk_out, q[:, c * qc:(c + 1) * qc],
+    def chunk_out_cp(qb, pb):
+        scores = _gqa_scores(qb, k) * scale                  # (B,KV,G,qc,Sk)
+        scores = sharding.constrain(scores, "batch", None, None, None, "seq")
+        if masked:
+            mask = (pb[:, None, None, :, None]
+                    >= kv_pos[None, None, None, None, :])
+            scores = torch.where(mask, scores, NEG_INF)
+        probs = torch.softmax(scores, dim=-1).to(cfg.cdtype)
+        return _gqa_out(probs, v)
+
+    body = chunk_out if head_tp else chunk_out_cp
+    outs = [remat(body, q[:, c * qc:(c + 1) * qc],
                   positions[:, c * qc:(c + 1) * qc]) for c in range(n)]
     out = torch.cat(outs, dim=1)[:, :S]
+    out = sharding.constrain(out, "batch", None,
+                             "heads" if head_tp else None, None)
     return _merge_heads(out, p[f"{prefix}/wo"].to(cfg.cdtype))
 
 
@@ -168,6 +226,12 @@ def init_cache_shapes(cfg: ModelConfig, batch: int, seq_len: int,
     return {"k": ShapeDtype(shape, dt), "v": ShapeDtype(shape, dt)}
 
 
+def cache_pspec():
+    """Specs of a layer's {k, v} cache under the active mesh rules."""
+    spec = sharding.spec_for(("cache_batch", "cache_seq", "kv_heads", None))
+    return {"k": spec, "v": spec}
+
+
 def decode_attention(cfg: ModelConfig, p: Mapping[str, torch.Tensor],
                      x: torch.Tensor, cache: Dict[str, torch.Tensor],
                      pos: int, prefix: str = "attn",
@@ -178,20 +242,33 @@ def decode_attention(cfg: ModelConfig, p: Mapping[str, torch.Tensor],
     over all S, kept there for a sequence-sharded cache, reads and writes
     the whole cache a step for the same values); positions past `pos` are
     masked out of the softmax.  `tables`, when given, is `self_tables` at
-    `pos`."""
+    `pos`.  Under a mesh context the write is the reference's masked
+    select over all S, which stays local to each shard of a
+    sequence-sharded cache; it replaces the dict's entries."""
     B = x.shape[0]
     pos = int(pos)
     S = cache["k"].shape[1]
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
     q, k_new, v_new = _project_qkv(cfg, p, x, x, prefix, positions, positions,
                                    rope=rope, tables=tables)
-    if update_cache:
+    if update_cache and sharding.current_mesh() is not None:
+        at = torch.arange(S, device=x.device)[None, :, None, None] == pos
+        cache["k"] = torch.where(at, k_new.to(cache["k"].dtype), cache["k"])
+        cache["v"] = torch.where(at, v_new.to(cache["v"].dtype), cache["v"])
+    elif update_cache:
         cache["k"][:, pos] = k_new[:, 0].to(cache["k"].dtype)
         cache["v"][:, pos] = v_new[:, 0].to(cache["v"].dtype)
-    k, v = cache["k"], cache["v"]
+    k = sharding.constrain(cache["k"], "cache_batch", "cache_seq",
+                           "kv_heads", None)
+    v = sharding.constrain(cache["v"], "cache_batch", "cache_seq",
+                           "kv_heads", None)
     scores = _gqa_scores(q, k.to(cfg.cdtype)) * _scale(cfg)
+    # the flash-decode pattern: scores stay sequence-sharded
+    scores = sharding.constrain(scores, "cache_batch", None, None, None,
+                                "cache_seq")
     valid = torch.arange(S, device=x.device) <= pos
     scores = torch.where(valid, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(cfg.cdtype)
     out = _gqa_out(probs, v.to(cfg.cdtype))
+    out = sharding.constrain(out, "cache_batch", None, None, None)
     return _merge_heads(out, p[f"{prefix}/wo"].to(cfg.cdtype)), cache

@@ -1,6 +1,6 @@
 """Encoder-decoder backbone (seamless-m4t): audio-frontend stub -> encoder,
-token decoder with cross-attention; port of `repro.models.encdec` on one
-device.  The modality frontend is a stub: the caller supplies precomputed
+token decoder with cross-attention; port of `repro.models.encdec` (its
+`sharding.constrain` sites kept).  The modality frontend is a stub: the caller supplies precomputed
 frame embeddings (B, S_src, d_model).
 
 Serving keeps the reference's cross caches as they are: its engine never
@@ -13,7 +13,8 @@ from typing import Dict, Mapping
 
 import torch
 
-from .attention import (attention, attn_defs, decode_attention,
+from .. import sharding
+from .attention import (attention, attn_defs, cache_pspec, decode_attention,
                         init_cache_shapes, self_tables)
 from .config import ModelConfig
 from .layers import (ParamDef, ParamDefs, ShapeDtype, chunked_xent,
@@ -61,7 +62,8 @@ def _tables(cfg: ModelConfig, S: int, device):
 def encode(cfg: ModelConfig, params, frames: torch.Tensor) -> torch.Tensor:
     """frames: (B, S_src, D) stub embeddings -> encoder states."""
     cd = cfg.cdtype
-    x = frames.to(cd) @ params["frontend/proj"].to(cd)
+    x = sharding.constrain(frames.to(cd) @ params["frontend/proj"].to(cd),
+                           "batch", "seq", None)
     tables = _tables(cfg, x.shape[1], x.device)
 
     def body(x, i):
@@ -70,7 +72,8 @@ def encode(cfg: ModelConfig, params, frames: torch.Tensor) -> torch.Tensor:
         x = x + attention(cfg, p, h, prefix="attn", causal=False,
                           tables=tables)
         h = rms_norm(x, p["norm2"], cfg.norm_eps)
-        return x + mlp_apply(cfg, p, h, prefix="mlp")
+        return sharding.constrain(x + mlp_apply(cfg, p, h, prefix="mlp"),
+                                  "batch", "seq", None)
 
     for i in range(cfg.n_enc_layers):
         x = remat(body, x, i) if cfg.remat == "full" else body(x, i)
@@ -92,7 +95,8 @@ def decode_train(cfg: ModelConfig, params, tokens: torch.Tensor,
         x = x + attention(cfg, p, h, prefix="cross", kv_x=memory,
                           causal=False)
         h = rms_norm(x, p["norm3"], cfg.norm_eps)
-        return x + mlp_apply(cfg, p, h, prefix="mlp")
+        return sharding.constrain(x + mlp_apply(cfg, p, h, prefix="mlp"),
+                                  "batch", "seq", None)
 
     for i in range(cfg.n_layers):
         x = remat(body, x, i) if cfg.remat == "full" else body(x, i)
@@ -120,6 +124,15 @@ def encdec_cache_shapes(cfg: ModelConfig, batch: int, seq_len: int,
                         "v": ShapeDtype(cross, cfg.cdtype)}
                        for _ in range(cfg.n_layers)),
     }
+
+
+def encdec_cache_pspecs(cfg: ModelConfig):
+    """Specs of `encdec_cache_shapes`'s tree under the active mesh rules:
+    self caches as a decoder's, cross K/V sharded over the source frames."""
+    cross = sharding.spec_for(("cache_batch", "frames", "kv_heads", None))
+    return {"self": tuple(cache_pspec() for _ in range(cfg.n_layers)),
+            "cross": tuple({"k": cross, "v": cross}
+                           for _ in range(cfg.n_layers))}
 
 
 def encdec_decode_step(cfg: ModelConfig, params, caches, tokens: torch.Tensor,

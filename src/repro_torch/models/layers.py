@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from .. import sharding
 from .config import ModelConfig
 
 
@@ -65,6 +66,20 @@ def remat(fn, *args):
     if torch.is_grad_enabled():
         return checkpoint(fn, *args, use_reentrant=False)
     return fn(*args)
+
+
+def abstract_params(defs: ParamDefs) -> Dict[str, torch.Tensor]:
+    """Every param as a `meta` tensor of its shape and dtype: no storage
+    (the reference's ShapeDtypeStruct stand-ins)."""
+    return {p: torch.empty(d.shape, dtype=d.dtype, device="meta")
+            for p, d in defs.items()}
+
+
+def param_pspecs(defs: ParamDefs) -> Dict[str, sharding.Spec]:
+    """Specs from logical axes, shape-fitted under the active mesh
+    (divisibility fallback + axis dedup happen here, not at use sites)."""
+    return {p: sharding.spec_for(d.logical, shape=d.shape)
+            for p, d in defs.items()}
 
 
 def init_params(defs: ParamDefs, generator: torch.Generator
@@ -176,7 +191,8 @@ def mlp_apply(cfg: ModelConfig, p: Mapping[str, torch.Tensor],
               x: torch.Tensor, prefix: str = "mlp") -> torch.Tensor:
     g = _act(cfg, x @ p[f"{prefix}/wg"].to(cfg.cdtype))
     u = x @ p[f"{prefix}/wu"].to(cfg.cdtype)
-    return (g * u) @ p[f"{prefix}/wo"].to(cfg.cdtype)
+    h = sharding.constrain(g * u, "batch", None, "ff")
+    return h @ p[f"{prefix}/wo"].to(cfg.cdtype)
 
 
 # ---------------------------------------------------------------------------
@@ -207,7 +223,9 @@ def embed_tokens(cfg: ModelConfig, p, tokens: torch.Tensor) -> torch.Tensor:
     # F.embedding, not indexing: its backward sums a row's gradients in a
     # fixed order (indexing's `index_put_` accumulate did not repeat on
     # several CPU threads), so a resumed training run repeats bit for bit
-    return F.embedding(tokens, emb) * host_scalar(scale, cfg.cdtype)
+    return sharding.constrain(
+        F.embedding(tokens, emb) * host_scalar(scale, cfg.cdtype),
+        "batch", "seq", None)
 
 
 def _out_matrix(cfg: ModelConfig, p) -> torch.Tensor:
@@ -219,16 +237,23 @@ def _out_matrix(cfg: ModelConfig, p) -> torch.Tensor:
 def logits_last(cfg: ModelConfig, p, h: torch.Tensor) -> torch.Tensor:
     """Logits over the padded vocabulary for the last position only: h
     (B, D) -> (B, padded_vocab)."""
-    return h @ _out_matrix(cfg, p)
+    return sharding.constrain(h @ _out_matrix(cfg, p), "batch", "vocab")
 
 
 def _chunk_loss(cfg: ModelConfig, out_w, hb, lb):
     """One chunk's summed cross-entropy over its valid labels, and their
     count, both float32."""
-    logits = (hb @ out_w).float()                   # (B, C, V)
+    logits = sharding.constrain((hb @ out_w).float(),  # (B, C, V)
+                                "batch", None, "vocab")
     lse = torch.logsumexp(logits, dim=-1)
     lbl = lb.clamp(0, cfg.vocab - 1).long()
-    picked = torch.gather(logits, -1, lbl[..., None])[..., 0]
+    if sharding.current_mesh() is None:
+        picked = torch.gather(logits, -1, lbl[..., None])[..., 0]
+    else:
+        # vocab-sharded logits: a masked sum over the vocab stays local to
+        # each shard (a sum of one value and zeros: the same value)
+        vocab = torch.arange(logits.shape[-1], device=lb.device)
+        picked = torch.where(vocab == lbl[..., None], logits, 0.0).sum(-1)
     valid = (lb >= 0).float()
     return ((lse - picked) * valid).sum(), valid.sum()
 

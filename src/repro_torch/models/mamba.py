@@ -1,5 +1,6 @@
 """Mamba2 (SSD — state-space duality, Dao & Gu 2024); port of
-`repro.models.mamba` on one device.
+`repro.models.mamba` (its `sharding.constrain` sites kept: with no mesh
+they return their argument).
 
 Train/prefill runs the chunked SSD form: within a chunk of length Q a
 decay-masked quadratic "attention", across chunks a recurrent state
@@ -18,6 +19,7 @@ from typing import Dict, Mapping, Tuple
 import torch
 import torch.nn.functional as F
 
+from .. import sharding
 from .config import ModelConfig
 from .layers import ParamDef, ParamDefs, ShapeDtype, rms_norm
 
@@ -90,6 +92,11 @@ def mamba_apply(cfg: ModelConfig, p: Mapping[str, torch.Tensor],
     cd, f32 = cfg.cdtype, torch.float32
 
     z, xs, Bm, Cm, dt = _project(cfg, p, prefix, x)
+    # inside the mixer the model axis holds d_inner channels (z/x) and
+    # the heads (dt, and the chunk tensors it drives), never the sequence
+    z = sharding.constrain(z, "batch", None, "ff")
+    xs = sharding.constrain(xs, "batch", None, "ff")
+    dt = sharding.constrain(dt, "batch", None, "ssm_heads")
     xs = F.silu(_causal_conv(xs, p[f"{prefix}/conv_x"].to(cd)))
     Bm = F.silu(_causal_conv(Bm, p[f"{prefix}/conv_B"].to(cd)))
     Cm = F.silu(_causal_conv(Cm, p[f"{prefix}/conv_C"].to(cd)))
@@ -97,7 +104,8 @@ def mamba_apply(cfg: ModelConfig, p: Mapping[str, torch.Tensor],
     a = -torch.exp(p[f"{prefix}/A_log"])                          # (nh,)
     da = dt * a                                                   # <= 0
 
-    xh = xs.reshape(B, S, nh, hp)
+    xh = sharding.constrain(xs.reshape(B, S, nh, hp),
+                            "batch", None, "ssm_heads", None)
     cum = torch.cumsum(da.reshape(B, nc, Q, nh), dim=2)          # (B,nc,Q,nh)
     seg_end = cum[:, :, -1, :]                                   # (B,nc,nh)
     xc = xh.reshape(B, nc, Q, nh, hp)
@@ -155,6 +163,16 @@ def init_mamba_cache_shapes(cfg: ModelConfig, batch: int, dtype=None
         "conv_B": ShapeDtype((batch, K - 1, N), dt),
         "conv_C": ShapeDtype((batch, K - 1, N), dt),
         "ssm": ShapeDtype((batch, nh, cfg.ssm_head_dim, N), torch.float32),
+    }
+
+
+def mamba_cache_pspec():
+    """Specs of a layer's mamba cache under the active mesh rules."""
+    return {
+        "conv_x": sharding.spec_for(("cache_batch", None, "ff")),
+        "conv_B": sharding.spec_for(("cache_batch", None, None)),
+        "conv_C": sharding.spec_for(("cache_batch", None, None)),
+        "ssm": sharding.spec_for(("cache_batch", "ssm_heads", None, None)),
     }
 
 

@@ -9,11 +9,15 @@ surface, the params passed in:
 
   param_defs()                  single source of truth (shape/dtype/logical)
   init(generator)               draw the params on the generator's device
+  abstract_params()             `meta` stand-ins (no storage)
+  param_pspecs()                specs under the active mesh rules
   loss(params, batch)           train objective (next-token xent [+ moe aux])
   prefill(params, batch)        full-context forward -> last-position logits
   decode_step(params, caches, tokens, pos)
-  cache_shapes(batch, seq_len, src_len=4096)
+  cache_shapes(batch, seq_len, src_len=4096) / cache_pspecs()
   zero_caches(batch, seq_len, device, src_len=4096)
+  input_specs(shape_cell) / input_pspecs(shape_cell)
+                                the dry run's input stand-ins and specs
 
 A model is built on the meta device (no storage) until `init` or
 `load_params` gives it tensors.  The registered parameters take no
@@ -28,8 +32,9 @@ from typing import Dict, Mapping
 import torch
 from torch import nn
 
+from .. import sharding
 from . import encdec, layers, transformer
-from .config import ModelConfig
+from .config import ModelConfig, ShapeCell
 
 
 def param_defs(cfg: ModelConfig) -> layers.ParamDefs:
@@ -52,6 +57,12 @@ class Model(nn.Module):
     # -- params ------------------------------------------------------------
     def param_defs(self) -> layers.ParamDefs:
         return param_defs(self.cfg)
+
+    def abstract_params(self) -> Dict[str, torch.Tensor]:
+        return layers.abstract_params(self.param_defs())
+
+    def param_pspecs(self) -> Dict[str, sharding.Spec]:
+        return layers.param_pspecs(self.param_defs())
 
     def params(self) -> Dict[str, torch.Tensor]:
         """The registered params by path."""
@@ -122,6 +133,60 @@ class Model(nn.Module):
             return encdec.encdec_cache_shapes(self.cfg, batch, seq_len,
                                               src_len)
         return transformer.lm_cache_shapes(self.cfg, batch, seq_len)
+
+    def cache_pspecs(self):
+        if self.cfg.is_encdec:
+            return encdec.encdec_cache_pspecs(self.cfg)
+        return transformer.lm_cache_pspecs(self.cfg)
+
+    # -- dry-run input stand-ins -------------------------------------------
+    def input_specs(self, cell: ShapeCell) -> Dict[str, object]:
+        """`layers.ShapeDtype` stand-ins for every model input of a cell.
+
+        train:   {tokens, labels [, frames | patches]}
+        prefill: {tokens [, frames | patches]}
+        decode:  {tokens (B,1), pos, caches}
+        """
+        B, S = cell.global_batch, cell.seq_len
+        i32 = torch.int32
+        cfg = self.cfg
+        sd = layers.ShapeDtype
+        if cell.kind in ("train", "prefill"):
+            if cfg.is_encdec:
+                # split the cell's seq budget: half frames, half tokens
+                s_src, s_tgt = S // 2, S // 2
+                specs = {"frames": sd((B, s_src, cfg.d_model), cfg.cdtype),
+                         "tokens": sd((B, s_tgt), i32)}
+                if cell.kind == "train":
+                    specs["labels"] = sd((B, s_tgt), i32)
+                return specs
+            specs = {"tokens": sd((B, S), i32)}
+            if cfg.frontend == "patches":
+                # vlm stub: patch embeddings prepended; token budget reduced
+                P = cfg.n_frontend_tokens
+                specs["tokens"] = sd((B, S - P), i32)
+                specs["patches"] = sd((B, P, cfg.d_model), cfg.cdtype)
+            if cell.kind == "train":
+                specs["labels"] = sd((B, specs["tokens"].shape[1]), i32)
+            return specs
+        # decode: one new token against a seq_len cache
+        return {"tokens": sd((B, 1), i32), "pos": sd((), i32),
+                "caches": self.cache_shapes(B, S, src_len=4096)}
+
+    def input_pspecs(self, cell: ShapeCell):
+        """Specs mirroring `input_specs` (under the active mesh rules)."""
+        sp = sharding.spec_for
+        if cell.kind in ("train", "prefill"):
+            specs = {"tokens": sp(("batch", "seq"))}
+            if self.cfg.is_encdec:
+                specs["frames"] = sp(("batch", "seq", None))
+            if self.cfg.frontend == "patches":
+                specs["patches"] = sp(("batch", None, None))
+            if cell.kind == "train":
+                specs["labels"] = sp(("batch", "seq"))
+            return specs
+        return {"tokens": sp(("cache_batch", None)), "pos": (),
+                "caches": self.cache_pspecs()}
 
     def zero_caches(self, batch: int, seq_len: int, device,
                     src_len: int = 4096):

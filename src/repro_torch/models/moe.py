@@ -1,4 +1,5 @@
-"""Mixture-of-Experts layer; port of `repro.models.moe` on one device.
+"""Mixture-of-Experts layer; port of `repro.models.moe` (its
+`sharding.constrain` sites kept: with no mesh they return their argument).
 
 Two dispatch implementations with the same router and the same
 capacity/drop policy (tested equal):
@@ -24,6 +25,7 @@ from typing import Mapping, Tuple
 import torch
 import torch.nn.functional as F
 
+from .. import sharding
 from .config import ModelConfig
 from .layers import ParamDef, ParamDefs, _act
 
@@ -89,12 +91,16 @@ def _expert_ranks(cfg: ModelConfig, experts: torch.Tensor):
 def _expert_ffn(cfg: ModelConfig, p, prefix, xin: torch.Tensor
                 ) -> torch.Tensor:
     """xin: (G, E, C, d) -> (G, E, C, d): each expert's gated MLP on its
-    G·C rows, one batched product an expert weight."""
+    G·C rows, one batched product an expert weight.  Under a mesh the
+    groups keep the batch sharding and the experts are sharded over
+    "model", so the (…, F) hidden is sharded on both."""
     G, E, C, D = xin.shape
+    xin = sharding.constrain(xin, "batch", "experts", None, None)
     x = xin.transpose(0, 1).reshape(E, G * C, D)
     g = _act(cfg, torch.bmm(x, p[f"{prefix}/wg"].to(cfg.cdtype)))
     u = torch.bmm(x, p[f"{prefix}/wu"].to(cfg.cdtype))
-    out = torch.bmm(g * u, p[f"{prefix}/wo"].to(cfg.cdtype))
+    h = sharding.constrain(g * u, "experts", "batch", None)
+    out = torch.bmm(h, p[f"{prefix}/wo"].to(cfg.cdtype))
     return out.reshape(E, G, C, D).transpose(0, 1)
 
 
@@ -164,7 +170,8 @@ def _with_shared(cfg: ModelConfig, p, prefix, x, y):
     for s in range(cfg.n_shared_experts):
         gg = _act(cfg, x @ p[f"{prefix}/shared{s}/wg"].to(cfg.cdtype))
         u = x @ p[f"{prefix}/shared{s}/wu"].to(cfg.cdtype)
-        y = y + (gg * u) @ p[f"{prefix}/shared{s}/wo"].to(cfg.cdtype)
+        h = sharding.constrain(gg * u, "batch", None, "ff")
+        y = y + h @ p[f"{prefix}/shared{s}/wo"].to(cfg.cdtype)
     return y
 
 

@@ -7,8 +7,9 @@ uniform model has period 1, so the axis runs over the layers; jamba's
 attn:mamba 1:7 interleave with MoE every other layer has period 8).  A
 block's mixer is attention or mamba, its MLP dense, MoE or none.  With
 `cfg.remat == "full"` each period is recomputed in the backward, as the
-reference's `jax.checkpoint` of its period body; the reference's sharding
-constraints have no counterpart on one device.
+reference's `jax.checkpoint` of its period body.  The reference's
+`sharding.constrain` sites are kept; with no mesh context they return
+their argument.
 """
 from __future__ import annotations
 
@@ -16,15 +17,16 @@ from typing import Dict, Mapping, Tuple
 
 import torch
 
+from .. import sharding
 from . import moe as moe_mod
-from .attention import (attention, attn_defs, decode_attention,
+from .attention import (attention, attn_defs, cache_pspec, decode_attention,
                         init_cache_shapes, self_tables)
 from .config import ModelConfig
 from .layers import (ParamDef, ParamDefs, chunked_xent, embed_defs,
                      embed_tokens, logits_last, mlp_apply, mlp_defs, remat,
                      rms_norm)
-from .mamba import (init_mamba_cache_shapes, mamba_apply, mamba_decode_step,
-                    mamba_defs)
+from .mamba import (init_mamba_cache_shapes, mamba_apply, mamba_cache_pspec,
+                    mamba_decode_step, mamba_defs)
 
 
 def _block_defs(cfg: ModelConfig, pos: int, kind: Tuple[str, str],
@@ -86,7 +88,7 @@ def _block_apply(cfg: ModelConfig, kind: Tuple[str, str], p_blk, x,
                       rope=use_rope, tables=tables)
     else:
         h = mamba_apply(cfg, p_blk, h, prefix="mamba")
-    x = x + h
+    x = sharding.constrain(x + h, "batch", "seq", None)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if mlp == "none":
         return x, aux
@@ -95,7 +97,7 @@ def _block_apply(cfg: ModelConfig, kind: Tuple[str, str], p_blk, x,
         h, aux = moe_mod.moe_apply(cfg, p_blk, h, prefix="moe", impl=moe_impl)
     else:
         h = mlp_apply(cfg, p_blk, h, prefix="mlp")
-    return x + h, aux
+    return sharding.constrain(x + h, "batch", "seq", None), aux
 
 
 def lm_backbone(cfg: ModelConfig, params: Mapping[str, torch.Tensor],
@@ -172,6 +174,12 @@ def lm_cache_shapes(cfg: ModelConfig, batch: int, seq_len: int):
                  if cfg.layer_kind(i)[0] == "attn"
                  else init_mamba_cache_shapes(cfg, batch)
                  for i in range(cfg.n_layers))
+
+
+def lm_cache_pspecs(cfg: ModelConfig):
+    """Specs of `lm_cache_shapes`'s tree under the active mesh rules."""
+    return tuple(cache_pspec() if cfg.layer_kind(i)[0] == "attn"
+                 else mamba_cache_pspec() for i in range(cfg.n_layers))
 
 
 def lm_decode_step(cfg: ModelConfig, params, caches, tokens: torch.Tensor,

@@ -96,6 +96,8 @@ def make_train_step(loss_fn: Callable, optimizer, lr_fn: Callable,
             finite = torch.isfinite(loss) & torch.isfinite(gn)
 
             def pick(new, old):     # written into `new`: no second copy
+                if type(new) is not torch.Tensor:   # a DTensor: no out=
+                    return torch.where(finite, new, old)
                 return torch.where(finite, new, old, out=new)
             new_params = {k: pick(new_params[k], state.params[k])
                           for k in new_params}

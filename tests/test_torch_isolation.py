@@ -73,6 +73,16 @@ def test_family_and_training_modules_scanned(rel):
     assert ROOT / "src" / "repro_torch" / rel in FILES
 
 
+# the compile-side tools, each of which the scan must cover
+TOOLS_MODULES = ("sharding.py", "launch/op_cost.py", "launch/analysis.py",
+                 "launch/dryrun.py", "launch/mesh.py")
+
+
+@pytest.mark.parametrize("rel", TOOLS_MODULES)
+def test_tools_modules_scanned(rel):
+    assert ROOT / "src" / "repro_torch" / rel in FILES
+
+
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_imports(path):
     bad = [name for name in _imports(path)

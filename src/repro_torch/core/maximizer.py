@@ -26,9 +26,17 @@ rollback counters); a `ProfilerHook` traces a window of chunks; a
 `MemorySampler` is read at every chunk boundary.  A chunk is enqueued
 eagerly, so with a recording telemetry the `execute` span waits for the
 card (one `torch.cuda.synchronize` a chunk) and the `host` span then
-times the stats copy alone.  With the defaults (telemetry disabled, no
-sampler, no profiler) the engine makes no extra sync, host read or
-event, and every hook leaves the trajectory bit for bit as it was.
+times the chunk boundary's host work: the stats copy and everything the
+controller decides from it, up to the next chunk's enqueue or the
+loop's exit.  A recording telemetry also gets a `solve` span around the
+whole solve (made the thread's `obs.telemetry.current()` recorder for
+its duration, so the kernel wrappers' `launch` spans land in it), a
+`step` span around each `rule.step` and a `calculate` span around each
+evaluation, the `solve.evaluations` counter and the solve's
+`kernels.<wrapper>.launches` deltas.  With the defaults (telemetry
+disabled, no sampler, no profiler) the engine makes no extra sync, host
+read or event, and every hook leaves the trajectory bit for bit as it
+was.
 
 Under several ranks (`core.distributed`) every rank runs this loop, and
 every host decision must come out the same on each, or the next
@@ -155,11 +163,14 @@ class SolveEngine:
                       **est)
 
     def _run_chunk(self, state: SolveState, length: int,
-                   gamma: Optional[torch.Tensor]):
+                   gamma: Optional[torch.Tensor], tel: Telemetry = None,
+                   calculate: Optional[Callable] = None):
         """`length` steps with no host synchronisation; returns the new
         state and the chunk's stats as one (6, length) float32 device
         tensor.  `gamma` fixes γ for the chunk (adaptive mode); None
-        follows the scheduled continuation from the carried counter."""
+        follows the scheduled continuation from the carried counter.
+        With a recording `tel` each step runs in a `step` span and calls
+        `calculate` (the engine's spanned evaluation) in its place."""
         config = self.config
         if gamma is None:
             def gamma_fn(st):
@@ -168,12 +179,31 @@ class SolveEngine:
             def gamma_fn(st):
                 return gamma
         rows = []
-        for _ in range(length):
-            state, st = self.rule.step(self.calculate, config, gamma_fn,
-                                       state, self.reduce)
-            rows.append(torch.stack([t.to(torch.float32).reshape(())
-                                     for t in st]))
+        if tel is None:
+            for _ in range(length):
+                state, st = self.rule.step(self.calculate, config, gamma_fn,
+                                           state, self.reduce)
+                rows.append(torch.stack([t.to(torch.float32).reshape(())
+                                         for t in st]))
+        else:
+            for _ in range(length):
+                with tel.span("step"):
+                    state, st = self.rule.step(calculate, config, gamma_fn,
+                                               state, self.reduce)
+                rows.append(torch.stack([t.to(torch.float32).reshape(())
+                                         for t in st]))
         return state, torch.stack(rows, dim=1)
+
+    def _spanned(self, tel: Telemetry, evaluations: list) -> Callable:
+        """The objective's `calculate` in a `calculate` span, counting
+        each call into `evaluations[0]`."""
+        calculate = self.calculate
+
+        def spanned(lam, gamma):
+            evaluations[0] += 1
+            with tel.span("calculate"):
+                return calculate(lam, gamma)
+        return spanned
 
     def solve(self, lam0: Optional[torch.Tensor],
               criteria: Optional[StoppingCriteria] = None,
@@ -215,8 +245,19 @@ class SolveEngine:
         poll, the wall-clock cap and the finiteness flags are made common
         at each chunk boundary by one collective; the preempt poll then
         stops the loop at the next boundary."""
-        config = self.config
         tel = telemetry if telemetry is not None else Telemetry.disabled()
+        seq = tel.next_solve()
+        with tel.activate(), tel.span("solve", solve=seq):
+            return self._solve(lam0, criteria, diagnostics_fn, infeas_scale,
+                               health, checkpoint_fn, preempt_fn,
+                               initial_state, resume_meta, tel, seq,
+                               profiler, sampler)
+
+    def _solve(self, lam0, criteria, diagnostics_fn, infeas_scale, health,
+               checkpoint_fn, preempt_fn, initial_state, resume_meta,
+               tel: Telemetry, seq: int, profiler, sampler) -> SolveResult:
+        """The solve loop of `solve`, in its `solve` span."""
+        config = self.config
         total = config.iterations
         if criteria is not None and criteria.max_iterations is not None:
             total = criteria.max_iterations
@@ -234,25 +275,42 @@ class SolveEngine:
         else:
             state = self.rule.init_state(lam0, config)
             dev = lam0.device
+        # the recording loop body's arguments, and the counts it keeps
+        spans, evaluations, launches0 = (), [0], None
         if tel.enabled:
+            from ..kernels import launch_counts  # kernels imports core
+            launches0 = launch_counts()
+            spans = (tel, self._spanned(tel, evaluations))
             tel.event("solve_start", algorithm=self.algorithm,
                       iterations_cap=total, chunked=chunked,
                       start_it=(int(initial_state.it)
                                 if initial_state is not None else 0),
                       gamma=config.gamma, gamma_init=config.gamma_init,
-                      adaptive_continuation=adaptive)
+                      adaptive_continuation=adaptive, solve=seq)
+
+        def _counted() -> None:
+            """The solve's evaluations and kernel launches, as counters."""
+            if launches0 is None:
+                return
+            tel.counter("solve.evaluations", evaluations[0])
+            from ..kernels import launch_counts
+            for name, n in launch_counts().items():
+                if n > launches0[name]:
+                    tel.counter(f"kernels.{name}.launches",
+                                n - launches0[name])
 
         if not chunked:
             # one chunk of the full count, no host read until its end
             t0 = time.perf_counter()
             self._note_runner(total, state, tel, sampler)
             with tel.span("execute", chunk=0, it=0, n=total):
-                state, stats = self._run_chunk(state, total, None)
+                state, stats = self._run_chunk(state, total, None, *spans)
                 if tel.enabled:
                     _sync(dev)
             stats = _to_host(stats, ())[0]
             tel.counter("solve.chunks")
             tel.counter("solve.iterations", total)
+            _counted()
             if sampler is not None:
                 s = sampler.sample(where="solve", it=total)
                 tel.event("memory", it=total, chunk=0,
@@ -262,7 +320,8 @@ class SolveEngine:
                       stop_reason=StopReason.MAX_ITERATIONS.value,
                       iterations_run=total, converged=False,
                       wall_s=time.perf_counter() - t0, checks=0,
-                      health_incidents=0)
+                      health_incidents=0, solve=seq,
+                      evaluations=evaluations[0])
             return SolveResult(lam=state.lam, stats=stats,
                                iterations_run=total, converged=False,
                                stop_reason=StopReason.MAX_ITERATIONS,
@@ -310,6 +369,8 @@ class SolveEngine:
         preempt_agreed = (agree([_polled(), False, False])[0]
                           if agree is not None else False)
         chunk_idx = 0
+        # the open `host` span of the last chunk boundary
+        host = None
         try:
             while it_done < total:
                 if preempt_agreed if agree is not None else _polled():
@@ -321,8 +382,12 @@ class SolveEngine:
                 self._note_runner(n, state, tel, sampler)
                 if profiler is not None:
                     profiler.chunk_start(chunk_idx, tel, device=dev)
+                if host is not None:
+                    host.__exit__(None, None, None)
+                    host = None
                 with tel.span("execute", chunk=chunk_idx, it=it_done, n=n):
-                    state, dev_stats = self._run_chunk(state, n, gamma_arr)
+                    state, dev_stats = self._run_chunk(state, n, gamma_arr,
+                                                       *spans)
                     if tel.enabled:
                         # the chunk is enqueued eagerly: wait here so the
                         # span measures the card's work, not the enqueue
@@ -331,11 +396,14 @@ class SolveEngine:
                     state, st = self.chunk_fault_hook(it_done, state,
                                                       IterStats(*dev_stats))
                     dev_stats = torch.stack(list(st))
-                # the chunk's one device-to-host copy
-                with tel.span("host", chunk=chunk_idx, it=it_done):
-                    stats, arrays_finite = _to_host(
-                        dev_stats,
-                        self.rule.health_arrays(state) if sweep else ())
+                # the chunk's one device-to-host copy and what the
+                # controller decides from it: one span, closed at the
+                # next chunk's enqueue or the loop's exit
+                host = tel.span("host", chunk=chunk_idx, it=it_done)
+                host.__enter__()
+                stats, arrays_finite = _to_host(
+                    dev_stats,
+                    self.rule.health_arrays(state) if sweep else ())
                 g = float(stats.dual_obj[-1])
                 infeas = float(stats.infeas[-1])
                 grad_norm = float(stats.grad_norm[-1])
@@ -448,6 +516,8 @@ class SolveEngine:
                     stop_reason = StopReason.MAX_SECONDS
                     break
         finally:
+            if host is not None:
+                host.__exit__(None, None, None)
             if profiler is not None:
                 # a solve that raises, diverges or is preempted mid-window
                 # still writes its trace
@@ -462,12 +532,14 @@ class SolveEngine:
         else:
             stats = IterStats(*(np.zeros((0,), np.float32)
                                 for _ in IterStats._fields))
+        _counted()
         if sampler is not None:
             tel.manifest(**sampler.watermarks())
         tel.event("solve_end", stop_reason=stop_reason.value,
                   iterations_run=it_done, converged=converged,
                   wall_s=time.perf_counter() - t0, checks=len(diags),
-                  health_incidents=len(health_recs))
+                  health_incidents=len(health_recs), solve=seq,
+                  evaluations=evaluations[0])
         return SolveResult(lam=state.lam, stats=stats, iterations_run=it_done,
                            converged=converged, stop_reason=stop_reason,
                            diagnostics=tuple(diags),

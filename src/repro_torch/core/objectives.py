@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from ..kernels import ops as kops
+from ..obs.telemetry import current
 from . import projections
 from .instance import build_ax_plan
 from .types import AxPlan, LPData, Slab
@@ -281,41 +282,46 @@ class MatchingObjective:
                                 for i in range(len(lp.slabs)))
         self.ax_mode = ax_mode
         device = lp.b.device
-        if ax_mode in ("aligned", "aligned_gvals"):
-            carry = ax_mode == "aligned"
-            if ax_plan is None:
-                from ..convert import lp_to_numpy, plan_to_torch  # convert imports core
-                ax_plan = plan_to_torch(build_ax_plan(
-                    lp_to_numpy(lp), carry_values=carry), device)
-            if carry and any(b.a_dm is None for b in ax_plan.buckets):
-                raise ValueError(
-                    "ax_mode='aligned' (x-carry) needs a value-carrying "
-                    "plan; rebuild with build_ax_plan(lp, carry_values=True) "
-                    "or use ax_mode='aligned_gvals'")
-        dtype = lp.slabs[0].c_vals.dtype if lp.slabs else torch.float32
-        # each slab's slice of the flat buffers starts on a 16-byte
-        # boundary, as the sweep kernels' vector stores need: the slabs'
-        # concatenated edge space with a gap of at most 15 bytes before a
-        # slab, which the plan's edge indices and the sorted order follow
-        align = 16 // torch.empty((), dtype=dtype).element_size()
-        starts, self._offsets, end, off = [], [], 0, 0
-        for s in lp.slabs:
-            off = -(-off // align) * align
-            starts.append(end)
-            self._offsets.append(off)
-            end += s.n * s.width
-            off += s.n * s.width
-        to_buf = _edge_map(starts, self._offsets, device)
-        if ax_plan is not None and to_buf is not None:
-            ax_plan = ax_plan._replace(buckets=tuple(
-                b._replace(edge_idx=to_buf(b.edge_idx))
-                for b in ax_plan.buckets))
-        self._plan = ax_plan
-        # the Ax kernels' work table, built once a plan (on the card only:
-        # the CPU's plain versions sum bucket by bucket)
-        self._work = (kops.plan_work(ax_plan)
-                      if ax_plan is not None and device.type == "cuda"
-                      else None)
+        # the Ax plan, its edge map and its work table: one `ax_plan` span
+        # of the thread's active recorder
+        with current().span("ax_plan"):
+            if ax_mode in ("aligned", "aligned_gvals"):
+                carry = ax_mode == "aligned"
+                if ax_plan is None:
+                    # convert imports core
+                    from ..convert import lp_to_numpy, plan_to_torch
+                    ax_plan = plan_to_torch(build_ax_plan(
+                        lp_to_numpy(lp), carry_values=carry), device)
+                if carry and any(b.a_dm is None for b in ax_plan.buckets):
+                    raise ValueError(
+                        "ax_mode='aligned' (x-carry) needs a value-carrying "
+                        "plan; rebuild with build_ax_plan(lp, "
+                        "carry_values=True) or use ax_mode='aligned_gvals'")
+            dtype = lp.slabs[0].c_vals.dtype if lp.slabs else torch.float32
+            # each slab's slice of the flat buffers starts on a 16-byte
+            # boundary, as the sweep kernels' vector stores need: the
+            # slabs' concatenated edge space with a gap of at most 15 bytes
+            # before a slab, which the plan's edge indices and the sorted
+            # order follow
+            align = 16 // torch.empty((), dtype=dtype).element_size()
+            starts, self._offsets, end, off = [], [], 0, 0
+            for s in lp.slabs:
+                off = -(-off // align) * align
+                starts.append(end)
+                self._offsets.append(off)
+                end += s.n * s.width
+                off += s.n * s.width
+            to_buf = _edge_map(starts, self._offsets, device)
+            if ax_plan is not None and to_buf is not None:
+                ax_plan = ax_plan._replace(buckets=tuple(
+                    b._replace(edge_idx=to_buf(b.edge_idx))
+                    for b in ax_plan.buckets))
+            self._plan = ax_plan
+            # the Ax kernels' work table, built once a plan (on the card
+            # only: the CPU's plain versions sum bucket by bucket)
+            self._work = (kops.plan_work(ax_plan)
+                          if ax_plan is not None and device.type == "cuda"
+                          else None)
         # the flat (E,) x buffer every evaluation's sweep writes into, and
         # in the gvals modes the flat (E, m) gvals buffer; the gaps stay 0
         self._xbuf = torch.zeros(off, dtype=dtype, device=device)

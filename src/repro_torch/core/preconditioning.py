@@ -15,6 +15,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
+from ..obs.telemetry import current
 from .types import LPData
 
 
@@ -45,15 +46,18 @@ def row_norms(lp: LPData) -> torch.Tensor:
 
 def row_normalize(lp: LPData) -> Tuple[LPData, RowScaling]:
     """Jacobi preconditioning: returns (scaled LP, scaling to undo duals);
-    λ = D λ' maps a dual of the scaled problem back."""
-    norms = row_norms(lp)
-    d = torch.where(norms > 0, 1.0 / torch.clamp_min(norms, 1e-30),
-                    torch.ones_like(norms))
-    slabs = []
-    for slab in lp.slabs:
-        d_e = d[:, slab.dest_idx.long()]                 # (m, n, w)
-        slabs.append(slab._replace(a_vals=slab.a_vals * d_e.permute(1, 2, 0)))
-    return LPData(slabs=tuple(slabs), b=lp.b * d), RowScaling(d=d)
+    λ = D λ' maps a dual of the scaled problem back.  Runs in a
+    `row_norm` span of the thread's active recorder."""
+    with current().span("row_norm"):
+        norms = row_norms(lp)
+        d = torch.where(norms > 0, 1.0 / torch.clamp_min(norms, 1e-30),
+                        torch.ones_like(norms))
+        slabs = []
+        for slab in lp.slabs:
+            d_e = d[:, slab.dest_idx.long()]             # (m, n, w)
+            slabs.append(slab._replace(
+                a_vals=slab.a_vals * d_e.permute(1, 2, 0)))
+        return LPData(slabs=tuple(slabs), b=lp.b * d), RowScaling(d=d)
 
 
 def undo_row_scaling(lam_scaled: torch.Tensor,

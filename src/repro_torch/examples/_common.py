@@ -6,6 +6,8 @@ import argparse
 import json
 from typing import Dict
 
+from ..kernels import launch_counts
+
 
 def parser(doc: str) -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=doc.strip().splitlines()[0])
@@ -15,21 +17,6 @@ def parser(doc: str) -> argparse.ArgumentParser:
     ap.add_argument("--json", action="store_true",
                     help="print the result as one JSON object, last")
     return ap
-
-
-def _wrappers():
-    from ..kernels.ax_reduce import ax_reduce_plan, ax_reduce_plan_x
-    from ..kernels.dual_grad import dual_grad_slab, dual_x_slab
-    from ..kernels.proj import proj_boxcut
-    return dict(dual_x_slab=dual_x_slab, ax_reduce_plan_x=ax_reduce_plan_x,
-                dual_grad_slab=dual_grad_slab, ax_reduce_plan=ax_reduce_plan,
-                proj_boxcut=proj_boxcut)
-
-
-def launch_counts() -> Dict[str, int]:
-    """K1-K5's launch counters now, by wrapper name (they count launches
-    on the card only; a run on the CPU leaves them as they were)."""
-    return {name: fn.launches for name, fn in _wrappers().items()}
 
 
 def launches_since(before: Dict[str, int]) -> Dict[str, int]:

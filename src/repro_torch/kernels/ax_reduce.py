@@ -30,6 +30,7 @@ from typing import NamedTuple, Optional, Sequence
 import torch
 
 from ..core.types import AxBucket
+from ..obs.telemetry import spanned
 from . import _build
 from .ref import ax_reduce_ref, ax_reduce_x_ref
 
@@ -308,6 +309,7 @@ def _launch(wrapper, lib_name, src, buckets, out, work):
     return out
 
 
+@spanned("launch", kernel="ax_reduce_plan_x")
 def ax_reduce_plan_x(x, plan, out, work: Optional[AxWork] = None):
     """One Ax of a value-carrying plan into `out` (K2): every column of
     the plan's destinations is written.
@@ -325,6 +327,7 @@ def ax_reduce_plan_x(x, plan, out, work: Optional[AxWork] = None):
                    work)
 
 
+@spanned("launch", kernel="ax_reduce_plan")
 def ax_reduce_plan(gvals, plan, out, work: Optional[AxWork] = None):
     """One Ax of an index-only plan into `out` (K4): every column of the
     plan's destinations is written.
@@ -341,6 +344,7 @@ def ax_reduce_plan(gvals, plan, out, work: Optional[AxWork] = None):
                    work)
 
 
+@spanned("launch", kernel="ax_reduce_bucket_x")
 def ax_reduce_bucket_x(x, a_dm, edge_idx, mask, dest_ids, out):
     """Reduce one value-carrying bucket into `out[:, dest_ids]` (K2, over
     the bucket's own work table).
@@ -356,6 +360,7 @@ def ax_reduce_bucket_x(x, a_dm, edge_idx, mask, dest_ids, out):
                    (AxBucket(edge_idx, mask, dest_ids, a_dm),), out, None)
 
 
+@spanned("launch", kernel="ax_reduce_bucket")
 def ax_reduce_bucket(gvals, edge_idx, mask, dest_ids, out):
     """Reduce one index-only bucket into `out[:, dest_ids]` (K4, over the
     bucket's own work table).

@@ -24,6 +24,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..obs.telemetry import spanned
 from . import _build
 from .ref import (NARROW_MAX_WIDTH, WIDE_THREADS, block_layout,
                   dual_grad_ref, dual_x_ref)
@@ -150,6 +151,7 @@ def _launch(wrapper, a_vals, c_vals, dest_idx, mask, ub, s, lam, gamma,
     return out, c_x, x_sq
 
 
+@spanned("launch", kernel="dual_x_slab")
 def dual_x_slab(a_vals, c_vals, dest_idx, mask, ub, s, lam, gamma,
                 iters: int = DEFAULT_ITERS,
                 out: Optional[torch.Tensor] = None):
@@ -175,6 +177,7 @@ def dual_x_slab(a_vals, c_vals, dest_idx, mask, ub, s, lam, gamma,
                    gamma, iters, out, None)
 
 
+@spanned("launch", kernel="dual_grad_slab")
 def dual_grad_slab(a_vals, c_vals, dest_idx, mask, ub, s, lam, gamma,
                    iters: int = DEFAULT_ITERS,
                    out: Optional[torch.Tensor] = None,

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from ..obs.telemetry import spanned
 from . import _build
 from .dual_grad import kernel_layout, layout_store, vector_values
 from .ref import proj_boxcut_ref
@@ -23,6 +24,7 @@ DEFAULT_ITERS = 40
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+@spanned("launch", kernel="proj_boxcut")
 def proj_boxcut(v, ub, s, mask, iters: int = DEFAULT_ITERS):
     """x (n, w) in v's dtype.  v, ub (n, w) and s (n,) float32 or bfloat16
     (the same); mask (n, w) bool.  On the card v, ub and mask must be

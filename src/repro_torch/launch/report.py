@@ -6,7 +6,9 @@
 Reads a JSONL run log emitted via ``--log-jsonl`` (or any `JsonlSink`),
 validates every record against the event schema, and renders the solve
 post-mortem: the run manifest, the per-chunk execute / host wall-clock
-split, the convergence trajectory, γ-continuation moves, health
+split, every span name's count, total and self time (the objective's
+`row_norm` and `ax_plan`, the engine's `solve`, `step` and `calculate`,
+the kernel wrappers' `launch`), the convergence trajectory, γ-continuation moves, health
 rollbacks, memory peaks, the launch census (`byte_census`) and final
 counters.  The port traces and compiles no program, so its logs have no
 `trace`/`compile` spans; a reference log's are still folded in.  Exits
@@ -58,6 +60,26 @@ def _span_chunks(spans: List[dict]) -> Dict[int, Dict[str, float]]:
         for k, v in pending.items():
             row[k] = row.get(k, 0.0) + v
     return chunks
+
+
+def _span_names(spans: List[dict]) -> Dict[str, Dict[str, float]]:
+    """Each span name's count, total seconds and self seconds (its
+    duration less its child spans', by the `parent` ids; a log without
+    ids gives self = total)."""
+    inner: Dict[Any, float] = {}
+    for ev in spans:
+        if ev.get("parent") is not None:
+            inner[ev["parent"]] = (inner.get(ev["parent"], 0.0)
+                                   + float(ev.get("dur_s", 0.0)))
+    rows: Dict[str, Dict[str, float]] = {}
+    for ev in spans:
+        dur = float(ev.get("dur_s", 0.0))
+        row = rows.setdefault(ev["name"],
+                              {"count": 0, "total_s": 0.0, "self_s": 0.0})
+        row["count"] += 1
+        row["total_s"] += dur
+        row["self_s"] += dur - inner.get(ev.get("id"), 0.0)
+    return rows
 
 
 def summarize(run: RunLog) -> Dict[str, Any]:
@@ -120,6 +142,7 @@ def summarize(run: RunLog) -> Dict[str, Any]:
         },
         "chunks": {str(k): chunks[k] for k in sorted(chunks)},
         "span_totals": totals,
+        "span_names": _span_names(spans),
         "trajectory": traj,
         "gamma_moves": [
             {k: ev.get(k) for k in ("it", "gamma_from", "gamma_to", "reason")}
@@ -200,6 +223,17 @@ def render(summary: Dict[str, Any]) -> str:
         tot = summary["span_totals"]
         out.append("  total  " + "".join(
             f"{_fmt_s(tot.get(p)):>11s}" for p in phases))
+
+    names = summary.get("span_names") or {}
+    if names:
+        out.append("== spans by name ==")
+        out.append(f"  {'name':16s} {'count':>8s} {'total':>11s} "
+                   f"{'self':>11s}")
+        for name in sorted(names, key=lambda n: -names[n]["total_s"]):
+            row = names[name]
+            out.append(f"  {name:16s} {row['count']:>8d} "
+                       f"{_fmt_s(row['total_s']):>11s} "
+                       f"{_fmt_s(row['self_s']):>11s}")
 
     traj = summary["trajectory"]
     out.append(f"== trajectory ({traj['checks']} convergence checks) ==")

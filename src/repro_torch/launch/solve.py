@@ -494,37 +494,42 @@ def run(args, log=print, instance: Optional[Instance] = None,
     ckpt = (_Checkpoints(args, fingerprint, device, log, writes=lead)
             if args.checkpoint_dir else None)
     t0 = time.perf_counter()
-    if args.formulation == "matching":
-        # the whole LP on the host, preconditioned on every rank before
-        # each keeps its row block, as the reference does
-        lp = lp_to_torch(lp_np, "cpu")
-        if not args.no_precondition:
-            lp, _ = precondition(lp, row_norm=True)
-        # the distributed objective has no "sorted" mode (its permutation
-        # would cross shard boundaries), and the reference CLI runs scatter
-        ax_mode = "scatter" if args.ax_mode == "sorted" else args.ax_mode
-        grid = make_grid((ranks.world, 1), ("data", "model"))
-        # solve_distributed in its two steps: the objective is kept for the
-        # certificate, and set-up and solve loop are timed apart
-        obj = DistributedMatchingObjective(
-            lp, grid, proj_kind=cfg.projection,
-            lambda_axis="model" if args.lambda_sharded else None,
-            ax_mode=ax_mode, device=device)
-        dual_shape = (lp.m, lp.num_destinations)
-        log(f"ranks: {ranks.world} on a ({ranks.world}, 1) grid (data, "
-            f"model){', lambda sharded on model' if args.lambda_sharded else ''}"
-            f"; rank 0 holds {sum(s.n for s in obj.lp.slabs)} source rows")
-    else:
-        ax_mode = args.ax_mode
-        form = formulations.build(args.formulation, lp_np)
-        obj = formulations.compile_formulation(
-            form, lp_to_torch(lp_np, device), ax_mode=ax_mode,
-            row_norm=not args.no_precondition)
-        dual_shape = obj.dual_shape
-        slices = {k: f"{v.start}:{v.stop}"
-                  for k, v in obj.row_slices().items()}
-        log(f"formulation '{args.formulation}': {obj.dual_shape[0]} dual "
-            f"rows ({slices})")
+    # the objective's build records its `row_norm` and `ax_plan` spans
+    # into the run log
+    with tel.activate():
+        if args.formulation == "matching":
+            # the whole LP on the host, preconditioned on every rank before
+            # each keeps its row block, as the reference does
+            lp = lp_to_torch(lp_np, "cpu")
+            if not args.no_precondition:
+                lp, _ = precondition(lp, row_norm=True)
+            # the distributed objective has no "sorted" mode (its permutation
+            # would cross shard boundaries), and the reference CLI runs scatter
+            ax_mode = "scatter" if args.ax_mode == "sorted" else args.ax_mode
+            grid = make_grid((ranks.world, 1), ("data", "model"))
+            # solve_distributed in its two steps: the objective is kept for the
+            # certificate, and set-up and solve loop are timed apart
+            obj = DistributedMatchingObjective(
+                lp, grid, proj_kind=cfg.projection,
+                lambda_axis="model" if args.lambda_sharded else None,
+                ax_mode=ax_mode, device=device)
+            dual_shape = (lp.m, lp.num_destinations)
+            sharded = (", lambda sharded on model" if args.lambda_sharded
+                       else "")
+            log(f"ranks: {ranks.world} on a ({ranks.world}, 1) grid (data, "
+                f"model){sharded}; rank 0 holds "
+                f"{sum(s.n for s in obj.lp.slabs)} source rows")
+        else:
+            ax_mode = args.ax_mode
+            form = formulations.build(args.formulation, lp_np)
+            obj = formulations.compile_formulation(
+                form, lp_to_torch(lp_np, device), ax_mode=ax_mode,
+                row_norm=not args.no_precondition)
+            dual_shape = obj.dual_shape
+            slices = {k: f"{v.start}:{v.stop}"
+                      for k, v in obj.row_slices().items()}
+            log(f"formulation '{args.formulation}': {obj.dual_shape[0]} dual "
+                f"rows ({slices})")
     del lp_np, instance
     lam0 = None
     if args.warm_start and (ckpt is None or ckpt.state is None):

@@ -19,7 +19,15 @@ Event taxonomy:
   span         one wall-clock section: name, slash-joined nesting path,
                duration.  The engine emits trace/compile per runner build
                and execute/host per chunk; the server emits query spans.
-  solve_start / solve_end   one solve's bracket records.
+               The port's spans also carry `id`, `parent` (the id of the
+               span open around it, null at the root), `start_ns` /
+               `end_ns` (unix ns, torch.profiler's host clock) and `solve`
+               (the solve's sequence number, null outside one); its engine
+               adds `solve` a solve, `step` a rule step and `calculate` an
+               evaluation, its kernel wrappers `launch` (field `kernel`),
+               its objective's build `row_norm` and `ax_plan`.
+  solve_start / solve_end   one solve's bracket records (the port's carry
+               `solve`, and its solve_end the solve's `evaluations`).
   check        one ConvergenceCheck (per-check host scalars, §4).
   gamma        a host-side γ-continuation move (stall decay or health
                backoff) — scheduled in-scan decays surface through the

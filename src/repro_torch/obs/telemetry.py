@@ -9,7 +9,12 @@ a benchmark row).  It records four kinds of signal:
                 `obs/schema.py` and every record is validated on read;
   * spans     — nestable wall-clock sections (`with tel.span("compile")`),
                 emitted as `span` events carrying the slash-joined nesting
-                path and the duration;
+                path, the duration, an integer `id`, the `parent` id of
+                the span open around it (None at the root), its
+                `start_ns` / `end_ns` on the unix clock torch.profiler
+                records host events on, and the `solve` sequence number
+                of the solve span it lies in (`next_solve`; null outside
+                one);
   * counters / gauges — in-memory monotonic counts and last-value gauges,
                 readable any time via `metrics_snapshot()` and flushed as
                 one `counters` record by `close()`;
@@ -18,13 +23,26 @@ a benchmark row).  It records four kinds of signal:
                 carries exactly what the operator saw.
 
 The sink is pluggable: `JsonlSink` appends one JSON object per line and
-flushes per record (a killed process loses at most the record in flight);
+flushes per record (a killed process loses at most the record in flight,
+and the spans closed since the last other record: closed spans are kept
+as plain tuples and written, in order, when a thread's outermost span
+closes or before the next record of another type);
 `ListSink` keeps parsed dicts in memory for tests.  A sink-less Telemetry
 is a console logger + metrics registry (events are dropped).
 
 `Telemetry.disabled()` returns the no-op singleton — the default of the
 allocation server and its frontend, so a path with no telemetry attached
 does no work for it.
+
+`with tel.activate():` makes a recorder this thread's current one and
+`current()` returns it (the disabled singleton when none is active):
+layers that are never handed a recorder — the objective's constructor,
+the preconditioning, the kernel wrappers — record their spans through it.
+
+The clock: each Telemetry takes one anchor pair, `time.time_ns()` and
+`time.perf_counter_ns()` read back to back, and maps every span's
+perf_counter readings onto the unix nanoseconds that kineto stamps host
+events with, so a span can be laid beside a profiler trace.
 
 All records are JSON-sanitized at emission: non-finite floats become
 null (a NaN dual objective from a diverging run must not produce an
@@ -46,6 +64,10 @@ of splicing into each other's.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
+import functools
+import itertools
 import json
 import math
 import os
@@ -53,11 +75,12 @@ import sys
 import threading
 import time
 import uuid
-from typing import Any, Dict, List, Optional, TextIO
+from typing import Any, Deque, Dict, List, Optional, TextIO
 
 import torch
 
-__all__ = ["Telemetry", "JsonlSink", "ListSink", "LEVELS"]
+__all__ = ["Telemetry", "JsonlSink", "ListSink", "LEVELS", "current",
+           "spanned"]
 
 LEVELS = {"debug": 10, "info": 20, "warning": 30, "error": 40}
 
@@ -109,6 +132,14 @@ class JsonlSink:
             self._f.write(json.dumps(record, separators=(",", ":")) + "\n")
             self._f.flush()
 
+    def write_many(self, records: List[Dict[str, Any]]) -> None:
+        with self._lock:
+            if self._f is None:
+                return
+            self._f.write("".join(json.dumps(r, separators=(",", ":"))
+                                  + "\n" for r in records))
+            self._f.flush()
+
     def close(self) -> None:
         with self._lock:
             if self._f is not None:
@@ -127,36 +158,66 @@ class ListSink:
         with self._lock:
             self.records.append(record)
 
+    def write_many(self, records: List[Dict[str, Any]]) -> None:
+        with self._lock:
+            self.records.extend(records)
+
     def close(self) -> None:
         pass
 
 
 class _Span:
-    """One nestable wall-clock section; emitted as a `span` event on exit."""
+    """One nestable wall-clock section; emitted as a `span` event on exit.
+    A span given a `solve` field passes it to every span opened inside
+    it on the same thread."""
 
-    __slots__ = ("_tel", "name", "path", "fields", "t0")
+    __slots__ = ("_tel", "name", "path", "fields", "t0", "id", "parent",
+                 "solve", "_stack")
 
     def __init__(self, tel: "Telemetry", name: str, fields: Dict[str, Any]):
         self._tel = tel
         self.name = name
         self.fields = fields
-        self.path = ""
-        self.t0 = 0.0
 
     def __enter__(self) -> "_Span":
         tel = self._tel
-        tel._stack.append(self.name)
-        self.path = "/".join(tel._stack)
-        self.t0 = time.perf_counter()
+        self._stack = stack = tel._tls.stack
+        self.id = next(tel._ids)
+        if stack:
+            top = stack[-1]
+            self.path = top.path + "/" + self.name
+            self.parent = top.id
+            self.solve = (self.fields.get("solve", top.solve)
+                          if self.fields else top.solve)
+        else:
+            self.path, self.parent = self.name, None
+            self.solve = self.fields.get("solve")
+        stack.append(self)
+        self.t0 = time.perf_counter_ns()
         return self
 
     def __exit__(self, exc_type, exc, tb) -> None:
-        dur = time.perf_counter() - self.t0
+        t1 = time.perf_counter_ns()
+        stack = self._stack
+        if stack[-1] is self:
+            stack.pop()
+        elif self in stack:
+            stack.remove(self)
+        # plain values, made a record when the spans are flushed
         tel = self._tel
-        if tel._stack and tel._stack[-1] == self.name:
-            tel._stack.pop()
-        tel._emit({"type": "span", "name": self.name, "path": self.path,
-                   "dur_s": dur, **self.fields})
+        tel._spans.append((self.name, self.path, self.id, self.parent,
+                           self.solve, self.t0, t1,
+                           _json_safe(self.fields) if self.fields
+                           else self.fields))
+        if not stack:
+            tel._flush()
+
+
+class _SpanStack(threading.local):
+    """Each thread's stack of open spans."""
+
+    def __init__(self):
+        self.stack: List[_Span] = []
 
 
 class _NullSpan:
@@ -185,9 +246,18 @@ class Telemetry:
         self._sink = sink
         self._level = LEVELS.get(level, LEVELS["info"])
         self._stream = stream if stream is not None else sys.stdout
-        self._t0 = time.perf_counter()
+        self._t0_ns = time.perf_counter_ns()
+        self._t0 = self._t0_ns * 1e-9
+        # the anchor pair: perf_counter_ns + _unix_ns is unix ns
+        unix, perf = time.time_ns(), time.perf_counter_ns()
+        self._unix_ns = unix - perf
+        self._ids = itertools.count()
+        self._solves = itertools.count()
+        # the records of closed spans not yet written, appended without a
+        # lock: deque appends and pops are atomic
+        self._spans: Deque[tuple] = collections.deque()
         self._lock = threading.RLock()
-        self._tls = threading.local()
+        self._tls = _SpanStack()
         self._counters: Dict[str, int] = {}
         self._gauges: Dict[str, float] = {}
         self._closed = False
@@ -216,23 +286,40 @@ class Telemetry:
         return self._manifest["run_id"]
 
     # -- record plumbing -------------------------------------------------
-    @property
-    def _stack(self) -> List[str]:
-        """Per-thread span stack: concurrent spans on different threads
-        each see their own nesting path (a shared list would splice one
-        thread's span names into another's slash path)."""
-        stack = getattr(self._tls, "stack", None)
-        if stack is None:
-            stack = self._tls.stack = []
-        return stack
-
     def _emit(self, record: Dict[str, Any]) -> None:
         record.setdefault("t", time.perf_counter() - self._t0)
         safe = _json_safe(record)
         with self._lock:
+            self._flush()
             if self._sink is None or self._closed:
                 return
             self._sink.write(safe)
+
+    def _flush(self) -> None:
+        """Write the closed spans' records, in the order they closed.  Runs
+        when a thread's outermost span closes and before any other
+        record, so the sink holds the records in the order they happened;
+        a killed process loses the spans closed since the last record."""
+        spans = self._spans
+        if not spans:
+            return
+        unix, t0 = self._unix_ns, self._t0_ns
+        with self._lock:
+            batch = [spans.popleft() for _ in range(len(spans))]
+            if self._sink is None or self._closed:
+                return
+            records = [{"type": "span", "name": name, "path": path,
+                        "dur_s": (e - b) * 1e-9, "id": sid, "parent": parent,
+                        "start_ns": b + unix, "end_ns": e + unix,
+                        "solve": solve, "t": (e - t0) * 1e-9, **fields}
+                       for name, path, sid, parent, solve, b, e, fields
+                       in batch]
+            write_many = getattr(self._sink, "write_many", None)
+            if write_many is not None:
+                write_many(records)
+            else:
+                for rec in records:
+                    self._sink.write(rec)
 
     def event(self, etype: str, **fields) -> None:
         """Emit one typed record to the sink (obs/schema.py names the
@@ -258,6 +345,20 @@ class Telemetry:
         """`with tel.span("compile"): ...` — nested spans join their names
         into a slash path ("solve/chunk/compile") on the emitted record."""
         return _Span(self, name, fields)
+
+    def next_solve(self) -> int:
+        """The next solve's sequence number (0, 1, ... a recorder)."""
+        return next(self._solves)
+
+    @contextlib.contextmanager
+    def activate(self):
+        """Make this recorder the thread's `current()` one for the body."""
+        prev = _CURRENT.tel
+        _CURRENT.tel = self
+        try:
+            yield self
+        finally:
+            _CURRENT.tel = prev
 
     # -- metrics ----------------------------------------------------------
     def counter(self, name: str, n: int = 1) -> int:
@@ -339,6 +440,9 @@ class _DisabledTelemetry(Telemetry):
     def span(self, name, **fields):
         return _NULL_SPAN
 
+    def next_solve(self):
+        return 0
+
     def counter(self, name, n=1):
         return 0
 
@@ -353,3 +457,52 @@ class _DisabledTelemetry(Telemetry):
 
 
 _DISABLED = _DisabledTelemetry()
+
+
+class _Current(threading.local):
+    """Each thread's active recorder; the disabled singleton until one is
+    activated."""
+
+    tel: Telemetry = _DISABLED
+
+
+_CURRENT = _Current()
+
+
+def current() -> Telemetry:
+    """This thread's active recorder (`Telemetry.activate`), or the
+    disabled singleton."""
+    return _CURRENT.tel
+
+
+def spanned(name: str, **fields):
+    """Decorator: each call of the function runs in a span `name` (with
+    `fields`) of the thread's active recorder, and with none active runs
+    as it is, at the cost of one lookup.  For a function that opens no
+    span itself: the span is recorded as a leaf, the child of the span
+    open around the call."""
+    fields = _json_safe(fields)
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kw):
+            tel = _CURRENT.tel
+            if not tel.enabled:
+                return fn(*args, **kw)
+            t0 = time.perf_counter_ns()
+            try:
+                return fn(*args, **kw)
+            finally:
+                t1 = time.perf_counter_ns()
+                stack = tel._tls.stack
+                if stack:
+                    top = stack[-1]
+                    tel._spans.append((name, top.path + "/" + name,
+                                       next(tel._ids), top.id, top.solve,
+                                       t0, t1, fields))
+                else:
+                    tel._spans.append((name, name, next(tel._ids), None,
+                                       None, t0, t1, fields))
+                    tel._flush()
+        return call
+    return wrap

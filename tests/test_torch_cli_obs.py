@@ -6,7 +6,8 @@ at 600 × 60 unless a test says otherwise:
                         `repro_torch.launch.report`, and carries the
                         manifest (argv, census as `byte_census`), the
                         generate / execute / host / census / certify /
-                        export_primal spans, one check a chunk, the
+                        export_primal spans, the objective build's
+                        row_norm / ax_plan spans, one check a chunk, the
                         `metrics` digest;
   --log-level           the console's threshold; the run log keeps every
                         line;
@@ -132,6 +133,26 @@ def test_run_log_spans_and_events(logged):
     assert "repro_memory_device_peak_bytes" in series
     acts = [(e["action"], e["chunk"]) for e in run.by_type("profile")]
     assert acts == [("start", 1), ("stop", 2)]
+
+
+def test_run_log_carries_the_build_spans(logged, capsys):
+    """The objective's build runs under the run log's recorder: its
+    `row_norm` and `ax_plan` spans, and the solve's spans and counters,
+    reach the log and the report."""
+    _, _, log, _, _ = logged
+    run = load_run(log)
+    spans = run.by_type("span")
+    names = [s["name"] for s in spans]
+    assert names.count("row_norm") == names.count("ax_plan") == 1
+    assert names.count("solve") == 1
+    assert names.count("step") == names.count("calculate") == 50
+    counters = run.by_type("counters")[-1]["counters"]
+    assert counters["solve.evaluations"] == 50
+    assert report.main([log]) == 0
+    text = capsys.readouterr().out
+    section = text.split("== spans by name ==")[1].split("==")[0]
+    for name in ("row_norm", "ax_plan", "step", "calculate", "launch"):
+        assert name in section, name
 
 
 def test_report_renders_the_cli_log(logged, capsys):
